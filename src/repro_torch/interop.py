@@ -1,0 +1,91 @@
+"""Carry state between the JAX reference and the port.
+
+The reference's arrays arrive as numpy (the caller runs
+``jax.tree.map(np.asarray, tree)``) and leave the port as numpy with the
+reference's dtypes.  This module owns the dtype map, both ways:
+
+=====================  =========================  ==========================
+reference              port                       which leaves
+=====================  =========================  ==========================
+uint32 hash words      int32, same bit pattern    fields ``hkey``, ``hkeys``
+uint32 counters        int64 in [0, 2**32 - 1]    every other uint32 leaf
+int32 / float32 /      unchanged                  everything else
+bool / uint8
+=====================  =========================  ==========================
+
+NamedTuples map by class name and field name, so a reference tree becomes
+the port's tree of the same shape.  The reference ``SimCarry.rng`` has no
+counterpart: the port carries a draw source (``SimCarry.draws``) instead.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+HKEY_FIELDS = ("hkey", "hkeys")
+_U32_MAX = 2**32 - 1
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _port_classes() -> dict[str, type]:
+    from repro_torch.core import orbit, pipeline, sketch, types
+    from repro_torch.kernels.subround import ops
+    from repro_torch.kvstore import client, server, simulator, workload
+    mods = (types, pipeline, orbit, sketch, ops, client, server, simulator,
+            workload)
+    return {name: obj for m in mods for name, obj in vars(m).items()
+            if isinstance(obj, type) and issubclass(obj, tuple)
+            and hasattr(obj, "_fields")}
+
+
+def to_numpy(x, name: str | None = None):
+    """Port tensor (or tree of them) -> numpy with the reference dtypes.
+
+    Leaves that are not tensors (a draw source) pass through unchanged.
+    """
+    if isinstance(x, torch.Tensor):
+        a = x.detach().cpu().numpy()
+        if name in HKEY_FIELDS:
+            return a.view(np.uint32)
+        if a.dtype == np.int64:
+            if a.size and (a.min() < 0 or a.max() > _U32_MAX):
+                raise ValueError(f"{name}: int64 counter outside uint32")
+            return a.astype(np.uint32)
+        return a
+    if _is_namedtuple(x):
+        return type(x)(*(to_numpy(getattr(x, f), f) for f in x._fields))
+    return x
+
+
+def from_numpy(x, device, name: str | None = None):
+    """Reference numpy array (or tree) -> the port's tensors on ``device``."""
+    if _is_namedtuple(x):
+        cls = _port_classes()[type(x).__name__]
+        return cls(**{f: from_numpy(getattr(x, f), device, f)
+                      for f in cls._fields})
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32) if name in HKEY_FIELDS else a.astype(np.int64)
+    return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+
+
+def switch_state_from_numpy(sw, device):
+    """Reference ``SwitchState`` (numpy leaves) -> the port's."""
+    return from_numpy(sw, device)
+
+
+def workload_from_numpy(arrays, device):
+    """Reference ``WorkloadArrays`` (numpy leaves) -> the port's."""
+    return from_numpy(arrays, device)
+
+
+def carry_from_numpy(carry, draws, device):
+    """Reference ``SimCarry`` (numpy leaves) -> the port's, with ``draws``
+    in place of the reference's PRNG key."""
+    from repro_torch.kvstore.simulator import SimCarry
+    return SimCarry(**{f: (draws if f == "draws"
+                           else from_numpy(getattr(carry, f), device, f))
+                       for f in SimCarry._fields})

@@ -1,0 +1,95 @@
+"""Kernel dispatch for the port (counterpart of ``repro.kernels``).
+
+Each kernel directory holds ``ref.py`` (the plain PyTorch version, which
+is also the CPU path), the Hopper kernel (``kernel.cu`` and its loader
+``kernel.py``) and ``ops.py`` (the wrapper that launches it).
+
+Backends
+--------
+* ``cuda``  the hand-written kernels; CUDA tensors only;
+* ``ref``   the plain PyTorch versions, on any device.
+
+Resolution order: :func:`set_kernel_backend` > ``REPRO_TORCH_KERNEL_BACKEND``
+> the device of the data (``cuda`` for CUDA tensors, ``ref`` for CPU
+tensors).  Asking for ``cuda`` with CPU tensors is an error.
+
+``LAUNCHES`` counts kernel launches by kernel name: a wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that its
+main path went through the kernels.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+# Bind the kernel subpackages BEFORE the same-named dispatchers below, so
+# the dispatcher functions shadow the subpackage attributes for good.
+from . import subround as _subround_pkg  # noqa: F401, E402
+
+KERNEL_BACKENDS = ("cuda", "ref")
+_ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
+_forced: str | None = None
+
+LAUNCHES: dict[str, int] = {"subround": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def set_kernel_backend(name: str | None) -> None:
+    """Force a kernel backend for this process (``None`` restores auto)."""
+    global _forced
+    if name is not None and name not in KERNEL_BACKENDS:
+        raise ValueError(f"unknown kernel backend {name!r}; "
+                         f"expected one of {KERNEL_BACKENDS}")
+    _forced = name
+
+
+def kernel_backend(device: torch.device) -> str:
+    """Resolve the backend for data on ``device``: forced > env > device."""
+    be = _forced
+    if be is None:
+        be = os.environ.get(_ENV_VAR, "").strip().lower() or None
+        if be is not None and be not in KERNEL_BACKENDS:
+            raise ValueError(f"{_ENV_VAR}={be!r}; "
+                             f"expected one of {KERNEL_BACKENDS}")
+    if be is None:
+        return "cuda" if device.type == "cuda" else "ref"
+    if be == "cuda" and device.type != "cuda":
+        raise ValueError(f"kernel backend 'cuda' needs CUDA tensors; the "
+                         f"data lies on {device}")
+    return be
+
+
+def subround(
+    hkey, want, wreq, inst, frag, nfrags, kidx, vlen, client, seq, port, ts,
+    table_hkeys, occupied, st_valid, st_version,
+    rt_client, rt_seq, rt_port, rt_ts, rt_acked, rt_kidx, qlen, front, rear,
+    ob_live, ob_kidx, ob_version, ob_vlen, ob_frags,
+    budget,
+    queue_size: int, max_frags: int, max_serves: int,
+):
+    """The full per-subround switch pass as one fused op (paper Fig. 4).
+
+    128-bit match, validity, popularity, request-table admission and
+    metadata apply, the state-table pass, the orbit-line metadata install
+    and the serving round.  Gate masks already include lane validity.
+    Returns an ``ops.SubroundOuts``.
+    """
+    from .subround.ops import SubroundOuts
+    from .subround.ops import subround as _sr
+    from .subround.ref import subround_ref
+
+    args = (hkey, want, wreq, inst, frag, nfrags, kidx, vlen, client, seq,
+            port, ts, table_hkeys, occupied, st_valid, st_version,
+            rt_client, rt_seq, rt_port, rt_ts, rt_acked, rt_kidx, qlen,
+            front, rear, ob_live, ob_kidx, ob_version, ob_vlen, ob_frags,
+            budget)
+    if kernel_backend(hkey.device) == "ref":
+        return SubroundOuts(*subround_ref(
+            *args, queue_size=queue_size, max_frags=max_frags,
+            max_serves=max_serves))
+    return _sr(*args, queue_size, max_frags, max_serves)

@@ -1,0 +1,450 @@
+"""Discrete-time rack simulator, OrbitCache scheme
+(port of ``repro.kvstore.simulator``).
+
+Time advances in windows (default 100 µs).  Each window the clients draw
+an open-loop Poisson batch, the switch runs the fused pipeline over the
+window's ``subrounds`` (one subround kernel launch each), the storage
+servers drain their FIFOs, the clients account the replies, and the
+servers' replies become next window's switch ingress.  Every ingress
+source is kept subround-major ``[R, L]``.
+
+A chunk of windows is an eager Python loop; nothing in it waits for the
+device until the caller reads the metrics.  The ``netcache`` and
+``nocache`` schemes, the periodic controller and server popularity
+tracking are later slices and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import pipeline
+from repro_torch.core.controller import CacheController, ControllerConfig
+from repro_torch.core.hashing import hash128_u32, server_of_key
+from repro_torch.core.types import (
+    OP_F_REQ, OP_NONE, ROUTE_CLIENT, ROUTE_SERVER, PacketBatch, empty_batch,
+    init_switch_state, resolve_device,
+)
+from repro_torch.interop import to_numpy
+
+from . import client as cl
+from .server import ServerConfig, ServerState, init_servers, server_step
+from .workload import Workload, WorkloadArrays
+
+HDR_BYTES = pipeline.HDR_BYTES
+I32, F32 = torch.int32, torch.float32
+
+
+@dataclass(frozen=True)
+class RackConfig:
+    scheme: str = "orbitcache"          # orbitcache (netcache | nocache: later)
+    window_us: float = 100.0
+    subrounds: int = 4
+    max_serves: int = 8
+    cache_entries: int = 128
+    queue_size: int = 8
+    value_pad: int = 1438
+    max_frags: int = 1
+    recirc_gbps: float = 100.0
+    netcache_entries: int = 10_000
+    netcache_table: int = 1 << 15
+    netcache_value_limit: int = 64
+    num_servers: int = 32
+    server_rps: float = 100_000.0
+    server_queue: int = 64
+    client_batch: int = 768
+    num_clients: int = 4
+    fetch_lanes: int = 256
+    track_popularity: bool = False
+    seed: int = 0
+
+
+class WindowMetrics(NamedTuple):
+    tx: torch.Tensor
+    rx_switch: torch.Tensor
+    rx_server: torch.Tensor     # int64 (the reference's uint32 delta)
+    served: torch.Tensor
+    dropped: torch.Tensor
+    backlog: torch.Tensor
+    hits: torch.Tensor
+    overflow: torch.Tensor
+    installs: torch.Tensor
+    crn: torch.Tensor
+    mismatches: torch.Tensor    # int64 (uint32 lifetime counter)
+    fwd: torch.Tensor
+
+
+class SimCarry(NamedTuple):
+    policy: Any                 # SwitchState
+    servers: ServerState
+    clients: cl.ClientState
+    pending: PacketBatch        # server replies awaiting the switch, [R, Lp]
+    fetch: PacketBatch          # controller-injected F-REQs, [R, Lf]
+    draws: Any                  # the random-draw source (TorchDraws, ...)
+    now: torch.Tensor           # float32 µs
+    offered: torch.Tensor       # float32 mean requests per window
+    write_ratio: torch.Tensor   # float32
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+
+
+def make_server_config(cfg: RackConfig) -> ServerConfig:
+    return ServerConfig(
+        num_servers=cfg.num_servers, queue_depth=cfg.server_queue,
+        cap_per_window=max(1, int(round(cfg.server_rps * cfg.window_us
+                                        * 1e-6))),
+        value_pad=cfg.value_pad, max_frags=cfg.max_frags,
+        track_popularity=cfg.track_popularity,
+    )
+
+
+def make_client_config(cfg: RackConfig) -> cl.ClientConfig:
+    return cl.ClientConfig(batch=cfg.client_batch, num_clients=cfg.num_clients,
+                           value_pad=cfg.value_pad, subrounds=cfg.subrounds)
+
+
+def interleave(batch: PacketBatch, subrounds: int) -> PacketBatch:
+    """Flat [W] lanes -> subround-major [R, W // R] (lane i -> row i % R)."""
+    def f(a):
+        return a.reshape((a.shape[0] // subrounds, subrounds) + a.shape[1:]
+                         ).transpose(0, 1).contiguous()
+    return PacketBatch(*(f(a) for a in batch))
+
+
+def _reply_width(cfg: RackConfig, server_cfg: ServerConfig) -> tuple[int, int]:
+    w = cfg.num_servers * server_cfg.cap_per_window * cfg.max_frags
+    return w, (-w) % cfg.subrounds
+
+
+def init_policy(cfg: RackConfig, device):
+    if cfg.scheme == "orbitcache":
+        return init_switch_state(cfg.cache_entries, cfg.queue_size,
+                                 cfg.value_pad, cfg.max_frags, device)
+    if cfg.scheme in ("netcache", "nocache"):
+        raise _not_ported(f"the {cfg.scheme} scheme", "Queue 1 item 5")
+    raise ValueError(f"unknown scheme {cfg.scheme!r}")
+
+
+def init_carry(cfg: RackConfig, server_cfg: ServerConfig,
+               client_cfg: cl.ClientConfig, num_keys: int,
+               offered_rps: float, write_ratio: float, draws,
+               device) -> SimCarry:
+    if cfg.fetch_lanes % cfg.subrounds:
+        raise ValueError(f"fetch_lanes ({cfg.fetch_lanes}) must be a "
+                         f"multiple of subrounds ({cfg.subrounds})")
+    reply_w, reply_pad = _reply_width(cfg, server_cfg)
+    f32 = lambda v: torch.tensor(v, dtype=F32, device=device)
+    return SimCarry(
+        policy=init_policy(cfg, device),
+        servers=init_servers(server_cfg, num_keys, device),
+        clients=cl.init_clients(client_cfg, device),
+        pending=interleave(empty_batch(reply_w + reply_pad, cfg.value_pad,
+                                       device), cfg.subrounds),
+        fetch=interleave(empty_batch(cfg.fetch_lanes, cfg.value_pad, device),
+                         cfg.subrounds),
+        draws=draws,
+        now=f32(0.0),
+        offered=f32(offered_rps * cfg.window_us * 1e-6),
+        write_ratio=f32(write_ratio),
+    )
+
+
+def build_fetch_batch(cfg: RackConfig, vlen_table: torch.Tensor,
+                      fetches: list[tuple[int, int]]) -> PacketBatch:
+    """Controller F-REQs as a subround-major fetch batch (paper §3.8)."""
+    dev = vlen_table.device
+    fb = empty_batch(cfg.fetch_lanes, cfg.value_pad, dev)
+    n = min(len(fetches), cfg.fetch_lanes)
+    if n:
+        kj = torch.tensor([k for k, _ in fetches[:n]], dtype=I32, device=dev)
+        put = lambda a, v: torch.cat([torch.as_tensor(v, device=dev)
+                                      .to(a.dtype).expand((n,) + a.shape[1:]),
+                                      a[n:]])
+        fb = fb._replace(
+            op=put(fb.op, OP_F_REQ), kidx=put(fb.kidx, kj),
+            hkey=put(fb.hkey, hash128_u32(kj)),
+            vlen=put(fb.vlen, vlen_table[kj.long()]),
+            server=put(fb.server, server_of_key(kj, cfg.num_servers)),
+            valid=put(fb.valid, True),
+        )
+    return interleave(fb, cfg.subrounds)
+
+
+def generate_requests(cfg: RackConfig, client_cfg: cl.ClientConfig,
+                      wl: WorkloadArrays, carry: SimCarry):
+    """Draw this window's open-loop client batch: ``(clients', reqs)``."""
+    return cl.generate(carry.clients, client_cfg, carry.draws, wl.cdf,
+                       wl.perm, wl.vlen, carry.offered, carry.write_ratio,
+                       cfg.num_servers, carry.now)
+
+
+def generate_ingress(cfg: RackConfig, client_cfg: cl.ClientConfig,
+                     wl: WorkloadArrays, carry: SimCarry):
+    """Draw the client batch and assemble the switch ingress (client
+    requests + pending server replies + controller F-REQs, concatenated
+    along the lane axis).  Returns ``(clients', reqs, sub)``."""
+    clients, reqs = generate_requests(cfg, client_cfg, wl, carry)
+    sub = PacketBatch(*(torch.cat(xs, dim=1)
+                        for xs in zip(reqs, carry.pending, carry.fetch)))
+    return clients, reqs, sub
+
+
+def window_step(cfg: RackConfig, server_cfg: ServerConfig,
+                client_cfg: cl.ClientConfig, key_size: int,
+                wl: WorkloadArrays, carry: SimCarry,
+                ) -> tuple[SimCarry, WindowMetrics]:
+    clients, reqs, sub = generate_ingress(cfg, client_cfg, wl, carry)
+    return process_window(cfg, server_cfg, client_cfg, key_size, carry,
+                          clients, reqs, sub)
+
+
+def process_window(cfg: RackConfig, server_cfg: ServerConfig,
+                   client_cfg: cl.ClientConfig, key_size: int,
+                   carry: SimCarry, clients: cl.ClientState,
+                   reqs: PacketBatch, sub: PacketBatch,
+                   ) -> tuple[SimCarry, WindowMetrics]:
+    """Run one window over the subround-major ingress ``sub``."""
+    c = cfg
+    if c.scheme != "orbitcache":
+        raise _not_ported(f"the {c.scheme} scheme", "Queue 1 item 5")
+    dev = sub.op.device
+    f32 = lambda v: torch.tensor(v, dtype=F32, device=dev)
+    pad_to = sub.op.shape[0] * sub.op.shape[1]
+    window = f32(c.window_us)
+
+    policy, outs, intervals = pipeline.window_pipeline(
+        carry.policy, sub, recirc_gbps=c.recirc_gbps, window_us=c.window_us,
+        subrounds=c.subrounds, max_serves=c.max_serves, key_size=key_size)
+    grids, stats = outs.grid, outs.stats
+    # serve time = now + (r + 0.5) * window / R + (order + 1) * interval,
+    # with window / R folded as window * (1 / R), as XLA compiles the
+    # reference (exact for R a power of two)
+    r_idx = torch.arange(c.subrounds, dtype=F32, device=dev)[:, None, None]
+    k_sub = np.float32(c.window_us) * (np.float32(1.0)
+                                       / np.float32(c.subrounds))
+    serve_time = ((carry.now + (r_idx + f32(0.5)) * f32(k_sub))
+                  + (grids.order.to(F32) + f32(1.0))
+                  * intervals[:, None, None])
+    j = c.max_serves
+    clients = cl.account_switch_served(
+        clients, client_cfg, grids.served.reshape(-1, j),
+        grids.req_kidx.reshape(-1, j), grids.ts.reshape(-1, j),
+        grids.kidx.reshape(-1), serve_time.reshape(-1, j))
+    isum = lambda x: torch.sum(x, dtype=I32)
+
+    route_flat = outs.route.reshape(-1)
+    flag_flat = outs.flag.reshape(-1)
+    ing_flat = PacketBatch(*(a.reshape((pad_to,) + a.shape[2:]) for a in sub))
+
+    to_server = (route_flat == ROUTE_SERVER) & ing_flat.valid
+    servers, sout = server_step(carry.servers, server_cfg, ing_flat,
+                                to_server, flag_flat, carry.now)
+
+    to_client = (route_flat == ROUTE_CLIENT) & ing_flat.valid
+    rx_srv_before = clients.rx_server
+    clients = cl.account_server_replies(clients, client_cfg, ing_flat,
+                                        to_client, carry.now + window)
+    rx_srv = clients.rx_server - rx_srv_before
+
+    reply_w, reply_pad = _reply_width(cfg, server_cfg)
+    rep = sout.replies
+    if reply_pad:
+        pad_b = empty_batch(reply_pad, c.value_pad, dev)
+        rep = PacketBatch(*(torch.cat([a, p]) for a, p in zip(rep, pad_b)))
+
+    metrics = WindowMetrics(
+        tx=isum(reqs.valid & (reqs.op != OP_NONE)),
+        rx_switch=isum(stats.n_served), rx_server=rx_srv,
+        served=sout.served_now, dropped=sout.dropped_now,
+        backlog=sout.backlog, hits=isum(stats.n_hit),
+        overflow=isum(stats.n_overflow) + isum(stats.n_invalid_fwd),
+        installs=isum(stats.n_install), crn=isum(stats.n_crn),
+        mismatches=clients.mismatches, fwd=isum(to_server),
+    )
+    new_carry = SimCarry(
+        policy=policy, servers=servers, clients=clients,
+        pending=interleave(rep, c.subrounds),
+        fetch=interleave(empty_batch(c.fetch_lanes, c.value_pad, dev),
+                         c.subrounds),
+        draws=carry.draws, now=carry.now + window, offered=carry.offered,
+        write_ratio=carry.write_ratio,
+    )
+    return new_carry, metrics
+
+
+def chunked_run(total_windows: int, chunk_windows: int,
+                run_windows_fn) -> list[dict[str, np.ndarray]]:
+    """Window chunks rounded to whole chunks (the no-period mode of the
+    reference's ``chunked_run``).  Returns the per-chunk trace dicts."""
+    traces: list[dict[str, np.ndarray]] = []
+    total = max(chunk_windows,
+                (total_windows // chunk_windows) * chunk_windows)
+    done = 0
+    while done < total:
+        n = min(chunk_windows, total - done)
+        traces.append(run_windows_fn(n))
+        done += n
+    return traces
+
+
+@dataclass
+class SimResult:
+    """Host-side aggregation of a run."""
+    window_us: float
+    traces: dict[str, np.ndarray] = field(default_factory=dict)
+    hist_switch: np.ndarray | None = None
+    hist_server: np.ndarray | None = None
+    info: dict = field(default_factory=dict)
+
+    def throughput_rps(self, burn_frac: float = 0.25) -> float:
+        rx = self.traces["rx_switch"] + self.traces["rx_server"]
+        n = len(rx)
+        b = int(n * burn_frac)
+        return float(rx[b:].sum() / ((n - b) * self.window_us * 1e-6))
+
+    def offered_rps(self, burn_frac: float = 0.25) -> float:
+        tx = self.traces["tx"]
+        n = len(tx)
+        b = int(n * burn_frac)
+        return float(tx[b:].sum() / ((n - b) * self.window_us * 1e-6))
+
+    def per_server_rps(self, burn_frac: float = 0.25) -> np.ndarray:
+        s = self.traces["served"]
+        n = s.shape[0]
+        b = int(n * burn_frac)
+        return s[b:].sum(axis=0) / ((n - b) * self.window_us * 1e-6)
+
+    def balancing_efficiency(self, burn_frac: float = 0.25) -> float:
+        """Paper Fig. 13b: min server throughput / max server throughput."""
+        rps = self.per_server_rps(burn_frac)
+        return float(rps.min() / max(rps.max(), 1e-9))
+
+    def max_server_drop_frac(self, burn_frac: float = 0.25) -> float:
+        b = int(self.traces["served"].shape[0] * burn_frac)
+        served = self.traces["served"][b:].sum(axis=0)
+        dropped = self.traces["dropped"][b:].sum(axis=0)
+        denom = np.maximum(served + dropped, 1)
+        return float((dropped / denom).max())
+
+    def overflow_ratio(self, burn_frac: float = 0.25) -> float:
+        n = len(self.traces["hits"])
+        b = int(n * burn_frac)
+        ov = self.traces["overflow"][b:].sum()
+        hits = self.traces["hits"][b:].sum()
+        return float(ov / max(ov + hits, 1))
+
+    def latency_percentile(self, q: float, which: str = "all") -> float:
+        edges = np.asarray(cl.bucket_edges_us())
+        if which == "switch":
+            h = self.hist_switch
+        elif which == "server":
+            h = self.hist_server
+        else:
+            h = self.hist_switch + self.hist_server
+        total = h.sum()
+        if total == 0:
+            return float("nan")
+        cum = np.cumsum(h) / total
+        i = int(np.searchsorted(cum, q))
+        return float(edges[min(i + 1, len(edges) - 1)])
+
+
+class RackSimulator:
+    """One storage rack under the OrbitCache switch.
+
+    ``device`` defaults to the CUDA card; ``draws`` defaults to a
+    :class:`~repro_torch.kvstore.client.TorchDraws` seeded from
+    ``cfg.seed``.
+    """
+
+    def __init__(self, cfg: RackConfig, wl: Workload, device=None,
+                 draws=None):
+        if cfg.track_popularity:
+            raise _not_ported("server popularity tracking "
+                              "(track_popularity=True)", "Queue 1 item 7")
+        self.cfg = cfg
+        self.wl = wl
+        self.device = resolve_device(device)
+        if wl.device != self.device:
+            raise ValueError(f"workload lives on {wl.device}, the simulator "
+                             f"on {self.device}")
+        self.server_cfg = make_server_config(cfg)
+        self.client_cfg = make_client_config(cfg)
+        self.key_size = wl.cfg.key_size
+        self.controller = CacheController(ControllerConfig(
+            active_size=cfg.cache_entries, max_size=cfg.cache_entries))
+        if draws is None:
+            draws = cl.TorchDraws(cfg.seed, self.device)
+        self.carry = init_carry(
+            cfg, self.server_cfg, self.client_cfg, wl.cfg.num_keys,
+            wl.cfg.offered_rps, wl.cfg.write_ratio, draws, self.device)
+
+    def set_offered(self, rps: float) -> None:
+        self.carry = self.carry._replace(offered=torch.tensor(
+            rps * self.cfg.window_us * 1e-6, dtype=F32, device=self.device))
+
+    def set_write_ratio(self, r: float) -> None:
+        self.carry = self.carry._replace(write_ratio=torch.tensor(
+            r, dtype=F32, device=self.device))
+
+    def reset_stats(self) -> None:
+        """Zero client histograms/counters (per-phase measurements)."""
+        old = self.carry.clients
+        self.carry = self.carry._replace(
+            clients=cl.init_clients(self.client_cfg, self.device)._replace(
+                next_seq=old.next_seq, crn_kidx=old.crn_kidx,
+                crn_n=old.crn_n))
+
+    def preload(self, keys: np.ndarray) -> None:
+        """Install the hot set before measuring (paper §5.1), then let 16
+        windows carry the F-REQs to the servers and the F-REPs back."""
+        if self.cfg.scheme != "orbitcache":
+            raise _not_ported(f"the {self.cfg.scheme} scheme",
+                              "Queue 1 item 5")
+        sw, fetches = self.controller.preload(self.carry.policy, keys)
+        self.carry = self.carry._replace(policy=sw)
+        self.inject_fetches(fetches)
+        self.run_windows(16)
+
+    def inject_fetches(self, fetches: list[tuple[int, int]]) -> None:
+        """Queue controller F-REQs for the next window (paper §3.8)."""
+        self.carry = self.carry._replace(
+            fetch=build_fetch_batch(self.cfg, self.wl.vlen, fetches))
+
+    def run_windows(self, n: int) -> dict[str, np.ndarray]:
+        """Step ``n`` windows; returns the per-window metrics as numpy
+        arrays with the reference's dtypes."""
+        wl = self.wl.arrays
+        carry, ys = self.carry, []
+        for _ in range(n):
+            carry, m = window_step(self.cfg, self.server_cfg, self.client_cfg,
+                                   self.key_size, wl, carry)
+            ys.append(m)
+        self.carry = carry
+        return {k: to_numpy(torch.stack([getattr(m, k) for m in ys]), k)
+                for k in WindowMetrics._fields}
+
+    def run(self, sim_seconds: float, chunk_windows: int = 256,
+            controller_period_s: float | None = None,
+            on_period: Any = None) -> SimResult:
+        """Run the rack for ``sim_seconds`` of simulated time."""
+        if controller_period_s or on_period:
+            raise _not_ported("the periodic controller (controller_period_s)",
+                              "Queue 1 item 7")
+        c = self.cfg
+        total_windows = int(round(sim_seconds / (c.window_us * 1e-6)))
+        traces = chunked_run(total_windows, chunk_windows, self.run_windows)
+        merged = {k: np.concatenate([t[k] for t in traces], axis=0)
+                  for k in traces[0]}
+        cs = self.carry.clients
+        return SimResult(
+            window_us=c.window_us, traces=merged,
+            hist_switch=to_numpy(cs.hist_switch, "hist_switch"),
+            hist_server=to_numpy(cs.hist_server, "hist_server"),
+            info=dict(scheme=c.scheme,
+                      active_size=self.controller.active_size))

@@ -1,0 +1,167 @@
+"""The port's rack simulator against the JAX reference.
+
+Both simulators start from one carry (handed across by
+``repro_torch.interop``) and the port replays the reference's own
+``jax.random`` draws, so every ``SimCarry`` leaf (except the PRNG key) and
+every ``WindowMetrics`` field must be equal, exactly, after the preload and
+after 16 more windows.
+
+The one stated tolerance is the latency histograms: ``torch.log2`` and
+``jnp.log2`` differ in the last bit for some float32 inputs, which can move
+a latency that sits on a quarter-octave bucket edge into the neighbouring
+bucket.  Totals must be equal; cumulative sums may differ by at most
+max(2, 0.1 % of the samples).  The bucket feeds only the histograms.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import kernels as jkn  # noqa: E402
+from repro.kvstore import simulator as jsim  # noqa: E402
+from repro.kvstore import workload as jwl  # noqa: E402
+from torch_parity import assert_trees_equal  # noqa: E402
+
+from repro_torch.core import sketch as tsk  # noqa: E402
+from repro_torch.core import types as ttypes  # noqa: E402
+from repro_torch.interop import carry_from_numpy, workload_from_numpy  # noqa: E402
+from repro_torch.kvstore import client as tcl  # noqa: E402
+from repro_torch.kvstore import server as tsrv  # noqa: E402
+from repro_torch.kvstore import simulator as tsim  # noqa: E402
+from repro_torch.kvstore import workload as twl  # noqa: E402
+
+RACK = dict(cache_entries=16, num_servers=4, value_pad=64, client_batch=64,
+            subrounds=4, fetch_lanes=32, seed=3)
+WORKLOAD = dict(num_keys=5000, offered_rps=0.5e6, write_ratio=0.1)
+
+
+def jax_draws(seed, offered, b, n_windows):
+    """The reference's per-window draws (simulator.py:321,
+    client.py:131-144): split the carry key, split again in three, then
+    Poisson count, key uniforms, write-coin uniforms."""
+    rng = jax.random.PRNGKey(seed)
+    ns, us, ws = [], [], []
+    for _ in range(n_windows):
+        rng, r_gen = jax.random.split(rng)
+        r1, r2, r3 = jax.random.split(r_gen, 3)
+        ns.append(np.asarray(jax.random.poisson(r1, offered)))
+        us.append(np.asarray(jax.random.uniform(r2, (b,), jnp.float32)))
+        ws.append(np.asarray(jax.random.uniform(r3, (b,), jnp.float32)))
+    return np.stack(ns), np.stack(us), np.stack(ws)
+
+
+def hist_close(got, want, path):
+    """Histogram tolerance (see the module docstring)."""
+    got, want = got.astype(np.int64), want.astype(np.int64)
+    total = int(want.sum())
+    assert int(got.sum()) == total, f"{path}: totals differ"
+    gap = np.abs(np.cumsum(got) - np.cumsum(want))
+    moved = int(np.abs(got - want).sum()) // 2
+    print(f"{path}: {moved} of {total} samples in a neighbouring bucket")
+    assert gap.max() <= max(2, total // 1000), f"{path}: cumsum gap {gap}"
+
+
+TOL = {".hist_switch": hist_close, ".hist_server": hist_close}
+
+
+def test_rack_simulator_matches_jax():
+    rcfg = jsim.RackConfig(**RACK)
+    wl_j = jwl.Workload(jwl.WorkloadConfig(**WORKLOAD))
+    wl_t = twl.Workload(twl.WorkloadConfig(**WORKLOAD), device="cpu")
+    cpu = torch.device("cpu")
+    carried = workload_from_numpy(jax.tree.map(np.asarray, wl_j.arrays), cpu)
+    for name in ("cdf", "perm", "vlen"):
+        assert torch.equal(getattr(wl_t, name), getattr(carried, name)), name
+
+    jkn.set_kernel_backend("ref")
+    try:
+        ref = jsim.RackSimulator(rcfg, wl_j)
+        draws = tcl.ReplayDraws(*jax_draws(rcfg.seed, ref.carry.offered,
+                                           rcfg.client_batch, 32), cpu)
+        port = tsim.RackSimulator(tsim.RackConfig(**RACK), wl_t,
+                                  device="cpu", draws=draws)
+        port.carry = carry_from_numpy(jax.tree.map(np.asarray, ref.carry),
+                                      draws, cpu)
+        keys = wl_j.hottest_keys(16)
+        ref.preload(keys)
+        port.preload(keys)
+        assert_trees_equal(port.carry, ref.carry, "after preload",
+                           tolerate=TOL)
+        m_ref = ref.run_windows(16)
+        m_port = port.run_windows(16)
+    finally:
+        jkn.set_kernel_backend(None)
+    for k, v in m_ref.items():
+        assert m_port[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(m_port[k], v, err_msg=f"metric {k}")
+    assert_trees_equal(port.carry, ref.carry, "after 16 windows",
+                       tolerate=TOL)
+    # the run must exercise the switch: hits, serves, installs, writes
+    assert m_ref["rx_switch"].sum() > 0 and m_ref["installs"].sum() > 0
+    assert m_ref["hits"].sum() > 0 and m_ref["fwd"].sum() > 0
+
+
+def test_unported_paths_raise():
+    wl_t = twl.Workload(twl.WorkloadConfig(num_keys=100), device="cpu")
+    for cfg in (tsim.RackConfig(scheme="netcache"),
+                tsim.RackConfig(scheme="nocache"),
+                tsim.RackConfig(track_popularity=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tsim.RackSimulator(cfg, wl_t, device="cpu")
+    sim = tsim.RackSimulator(tsim.RackConfig(num_servers=4), wl_t,
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sim.run(0.001, controller_period_s=0.01)
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        twl.Workload(twl.WorkloadConfig(num_keys=100))
+
+
+@pytest.mark.parametrize("build", [
+    lambda: ttypes.init_switch_state(8),
+    lambda: ttypes.empty_batch(8, 16),
+    lambda: tsrv.init_servers(tsrv.ServerConfig(num_servers=2), 100),
+    lambda: tcl.init_clients(tcl.ClientConfig(batch=8, value_pad=8)),
+    lambda: tsk.init_tracker(64, 4),
+], ids=["switch_state", "empty_batch", "servers", "clients", "tracker"])
+def test_state_builders_default_to_cuda(build):
+    """Every state builder resolves ``device=None`` to the card, as the
+    entry points do: without one it names the problem, not the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+
+
+def test_torch_draws_statistics():
+    """TorchDraws through client.generate, 2,000 windows: the Poisson mean,
+    the write share and the rank-1 share of the Zipf draw each within 4
+    standard errors."""
+    wl = twl.Workload(twl.WorkloadConfig(num_keys=1000), device="cpu")
+    ccfg = tcl.ClientConfig(batch=64, subrounds=4, value_pad=8)
+    draws = tcl.TorchDraws(11, "cpu")
+    st = tcl.init_clients(ccfg, "cpu")
+    lam, wr, n_win = 20.0, 0.25, 2000
+    offered = torch.tensor(lam, dtype=torch.float32)
+    ratio = torch.tensor(wr, dtype=torch.float32)
+    now = torch.tensor(0.0, dtype=torch.float32)
+    n_req = n_write = n_top = 0
+    for _ in range(n_win):
+        st, b = tcl.generate(st, ccfg, draws, wl.cdf, wl.perm, wl.vlen,
+                             offered, ratio, 4, now)
+        req = b.valid & (b.op <= 1)
+        n_req += int(req.sum())
+        n_write += int((req & (b.op == 1)).sum())
+        n_top += int((req & (b.kidx == 0)).sum())
+    assert abs(n_req / n_win - lam) < 4 * np.sqrt(lam / n_win)
+    assert abs(n_write / n_req - wr) < 4 * np.sqrt(wr * (1 - wr) / n_req)
+    p0 = float(wl.cdf[0])
+    assert abs(n_top / n_req - p0) < 4 * np.sqrt(p0 * (1 - p0) / n_req)
+    assert int(st.tx) == n_req

@@ -1,0 +1,55 @@
+"""Leaf-by-leaf comparison of port trees against the JAX reference.
+
+The port's tensors go through ``repro_torch.interop.to_numpy`` (the one
+dtype map), then every leaf of the reference tree is compared exactly,
+dtype included; a failure names the leaf path, as
+``test_parity_fuzz._assert_trees_equal`` does for the reference's own
+twins.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.interop import to_numpy
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_leaves_with_path(tree, prefix=""):
+    """[(path, leaf)] of a NamedTuple tree, fields in order."""
+    if _is_namedtuple(tree):
+        out = []
+        for f in tree._fields:
+            out += tree_leaves_with_path(getattr(tree, f), f"{prefix}.{f}")
+        return out
+    return [(prefix, tree)]
+
+
+def assert_trees_equal(port, ref, label: str, skip=("rng", "draws"),
+                       tolerate=None):
+    """Every leaf of ``ref`` equals the same-path leaf of ``port``.
+
+    ``tolerate`` maps a leaf path suffix to a checker ``fn(got, want, path)``
+    that replaces exact equality for that leaf (the test states why).
+    """
+    got = dict(tree_leaves_with_path(to_numpy(port)))
+    want = tree_leaves_with_path(ref)
+    assert want, f"{label}: empty reference tree"
+    for path, w in want:
+        if path.rsplit(".", 1)[-1] in skip:
+            continue
+        assert path in got, f"{label}: port has no leaf {path}"
+        g, w = np.asarray(got[path]), np.asarray(w)
+        assert g.dtype == w.dtype, \
+            f"{label}: dtype mismatch at {path}: {g.dtype} vs {w.dtype}"
+        assert g.shape == w.shape, \
+            f"{label}: shape mismatch at {path}: {g.shape} vs {w.shape}"
+        check = next((fn for suf, fn in (tolerate or {}).items()
+                      if path.endswith(suf)), None)
+        if check is not None:
+            check(g, w, f"{label}{path}")
+        else:
+            np.testing.assert_array_equal(
+                g, w, err_msg=f"{label}: mismatch at {path}")
