@@ -5,23 +5,34 @@
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. device: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: ``nvcc`` compiles the subround kernel for sm_90a from
-   ``src/repro_torch/kernels/subround/kernel.cu``;
-3. kernel against its plain version on the card, exactly, over 200 fuzz
-   cases and the edge cases, then the time of one launch at the paper's
-   shape (CUDA events over 1,000 launches) for both;
-4. the main path at the paper's scale (``configs/orbitcache_paper.py``:
-   10M keys, C = 128, 32 servers, 4M rps offered): preload the 128 hottest
-   keys, run 1,000 windows through ``RackSimulator.run`` on the kernel,
-   check that every subround launched the kernel once, then replay the same
-   draws from the same carry with the plain version and require every carry
-   leaf and every metric to be equal.
+2. build: ``nvcc`` compiles the three kernels for sm_90a, one process per
+   source, all started together (``kernels/{subround,cms,hot_gather}/
+   kernel.cu``), and prints ``ptxas``'s report for each;
+3. each kernel against its plain version on the card, exactly, over fuzz
+   cases and the shapes of the paper's rack, then ms per launch (CUDA
+   events over 1,000 launches) for the kernel, its wrapper, the plain
+   version and an empty kernel launched the same way (the launch floor);
+4. main path at the paper's scale (``configs/orbitcache_paper.py``: 10M
+   keys, C = 128, 32 servers, 4M rps offered): preload the 128 hottest
+   keys, run 1,000 windows through ``RackSimulator.run``, check that every
+   subround launched the kernel once, then replay the same draws from the
+   same carry with the plain version and require every carry leaf and
+   every metric to be equal; then profile 25 windows;
+5. control plane at the same scale with the servers' popularity tracking
+   on: preload, then three phases of ``run(0.05, controller_period_s=
+   0.01)`` (500 windows, 5 periods each) with ``hot_in_swap(128)`` before
+   phases 2 and 3, the cadence of Fig. 18.  Every window must launch 4
+   subround kernels and 1 count-min kernel, every period 3 hot_gather
+   kernels, and no plain version may run; the replay under the plain
+   versions must equal it in every carry leaf, metric and period update.
 
 The line before the last two is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -39,10 +50,44 @@ TIMED_LAUNCHES = 1000
 FUZZ_CASES = 200
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 SCALAR_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+CP_PHASES, CP_PHASE_S, CP_PERIOD_S, CP_SWAP = 3, 0.05, 0.01, 128
 
 
 def phase(name, **kv):
     print(json.dumps({"phase": name, **kv}), flush=True)
+
+
+def timed(fn, n=TIMED_LAUNCHES):
+    """ms per call of ``fn``: CUDA events around ``n`` calls, after a
+    warm-up."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(n):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n
+
+
+def bound(nbytes, ops):
+    """The least time (ms): bytes over HBM against operations over the
+    scalar rate, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_abs_err(got, want):
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{got.dtype}{tuple(got.shape)} vs "
+                             f"{want.dtype}{tuple(want.shape)}")
+    if not got.numel():
+        return 0.0
+    return (got.double() - want.double()).abs().max().item()
 
 
 # --------------------------------------------------------------------------
@@ -118,11 +163,10 @@ def check_kernel(dev):
         want = subround_ref(*args, queue_size=s, max_frags=f, max_serves=j)
         torch.cuda.synchronize()
         for name, g, w in zip(SubroundOuts._fields, got, want):
-            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            max_err = max(max_err, max_abs_err(g, w))
+            if not torch.equal(g, w):
                 raise AssertionError(f"kernel != plain version at {name} "
                                      f"(b={b} c={c} s={s} f={f} j={j} {kw})")
-            err = (g.double() - w.double()).abs().max().item() if g.numel() else 0
-            max_err = max(max_err, err)
     return len(cases), max_err
 
 
@@ -140,19 +184,6 @@ def time_kernel(dev):
     ptrs = ([a.data_ptr() for a in args[:-1]]
             + [args[-1].reshape(1).data_ptr()] + [o.data_ptr() for o in outs])
     stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def timed(fn, n=TIMED_LAUNCHES):
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        for _ in range(n):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / n
-
     ms = timed(lambda: kernel.launch(ptrs, b, c, s, f, j, stream))
     # an empty kernel, launched the same way: the floor launching sets
     launch_floor_ms = timed(lambda: kernel.launch(ptrs, b, c, s, f, j, stream,
@@ -164,14 +195,176 @@ def time_kernel(dev):
     # HBM, against the match's B*C*5 32-bit operations over the scalar rate
     nbytes = (sum(a.numel() * a.element_size() for a in args)
               + sum(o.numel() * o.element_size() for o in outs))
-    ops = b * c * 5
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
     assert len(outs) == len(SubroundOuts._fields)
     return dict(ms=ms, launch_floor_ms=launch_floor_ms,
                 wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                **bound(nbytes, b * c * 5))
+
+
+# --------------------------------------------------------------------------
+# count-min kernel
+# --------------------------------------------------------------------------
+# the rack's shape: 32 sketches of [5, 2048] over the window's 1,408 lanes
+# (768 client + 64 correction + 320 reply + 256 fetch)
+CMS_PAPER = (32, 1408, 2048)
+
+
+def cms_case(seed, n, b, w, density, dev):
+    """(idx, mask, counts) on ``dev``: repeated keys, per-sketch masks
+    and a nonzero starting sketch; ``n`` None means one sketch."""
+    from repro_torch.core.hashing import hash128_u32_np
+    from repro_torch.kernels.cms.ops import rows_for
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2 * b + 4, b).astype(np.int32)
+    lead = () if n is None else (n,)
+    hk = torch.from_numpy(hash128_u32_np(keys).view(np.int32)).to(dev)
+    mask = torch.from_numpy((rng.random(lead + (b,)) < density)
+                            .astype(np.int32)).to(dev)
+    counts = torch.from_numpy(rng.integers(0, 51, lead + (5, w))
+                              .astype(np.int32)).to(dev)
+    return rows_for(hk, w), mask, counts
+
+
+def check_cms(dev):
+    from repro_torch.kernels.cms.ops import tile_for, update_query
+    from repro_torch.kernels.cms.ref import cms_update_query_fast
+
+    cases = [(n, b, w, p, blk)
+             for n in (None, 4) for b in (1, 7, 8, 45, 256, 257, 600)
+             for w in (64, 512, 2048) for p in (0.0, 0.5, 1.0)
+             for blk in (32, 256)]
+    n, b, w = CMS_PAPER
+    cases += [(n, b, w, p, 256) for p in (1 / 32, 0.5, 1.0)]
+    max_err = 0.0
+    for i, (n, b, w, p, blk) in enumerate(cases):
+        idx, mask, counts = cms_case(i, n, b, w, p, dev)
+        tile = tile_for(b, blk)
+        got = update_query(idx, mask, counts, tile)
+        want = cms_update_query_fast(idx, mask, counts, block_b=tile)
+        torch.cuda.synchronize()
+        for name, g, wt in zip(("counts", "est"), got, want):
+            max_err = max(max_err, max_abs_err(g, wt))
+            if not torch.equal(g, wt):
+                raise AssertionError(f"cms kernel != plain version at {name} "
+                                     f"(n={n} b={b} w={w} p={p} blk={blk})")
+    return len(cases), max_err
+
+
+def time_cms(dev):
+    """ms per launch at the rack's shape, with each server's mask the
+    share of lanes it receives (1/32)."""
+    from repro_torch.kernels.cms import kernel
+    from repro_torch.kernels.cms.ops import tile_for, update_query
+    from repro_torch.kernels.cms.ref import cms_update_query_fast
+
+    n, b, w = CMS_PAPER
+    idx, mask, counts = cms_case(7, n, b, w, 1 / 32, dev)
+    tile = tile_for(b)
+    out, est = update_query(idx, mask, counts, tile)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (idx.data_ptr(), mask.data_ptr(), counts.data_ptr(),
+            out.data_ptr(), est.data_ptr())
+    ms = timed(lambda: kernel.launch(*ptrs, n, b, w, tile, stream))
+    floor = timed(lambda: kernel.launch(*ptrs, n, b, w, tile, stream,
+                                        empty=True))
+    wrapper_ms = timed(lambda: update_query(idx, mask, counts, tile))
+    plain_ms = timed(lambda: cms_update_query_fast(idx, mask, counts,
+                                                   block_b=tile))
+    # every input read once, every output written once; per masked lane
+    # five gathers, four mins and five adds
+    nbytes = 4 * (idx.numel() + mask.numel() + 2 * counts.numel()
+                  + est.numel())
+    ops = 14 * int(mask.sum())
+    return dict(shape=dict(n=n, b=b, w=w, tile=tile), ms=ms,
+                launch_floor_ms=floor, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, library_ms=None, **bound(nbytes, ops))
+
+
+# --------------------------------------------------------------------------
+# hot_gather kernel
+# --------------------------------------------------------------------------
+# the controller's three calls per period: (ids, hot ids, D)
+HG_CALLS = ((128, 2048, 1), (2048, 2048, 1), (2048, 128, 1))
+
+
+def hg_case(seed, b, c, d, dtype, distinct, dev):
+    """(ids, hot, rows) on ``dev``: ids with misses and the -3 sentinel,
+    hot ids repeated (unless ``distinct``) with -1 and -2 sentinels."""
+    rng = np.random.default_rng(seed)
+    universe = 2 * c + 4
+    if distinct:
+        hot = rng.choice(universe, c, replace=False).astype(np.int32)
+        hot[rng.integers(0, c)] = -2
+    else:
+        hot = rng.integers(0, max(2, c // 3), c).astype(np.int32)
+        hot[rng.random(c) < 0.1] = -2
+        hot[rng.random(c) < 0.05] = -1
+    ids = rng.integers(0, universe, b).astype(np.int32)
+    ids[rng.random(b) < 0.1] = -3
+    rows = (rng.integers(-1000, 1000, (c, d)).astype(np.int32)
+            if dtype == torch.int32
+            else rng.normal(size=(c, d)).astype(np.float32))
+    return [torch.from_numpy(a).to(dev) for a in (ids, hot, rows)]
+
+
+def check_hot_gather(dev):
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+
+    sizes = [(b, c, d) for b in (1, 128, 300) for c in (1, 128, 200)
+             for d in (1, 3, 64)] + list(HG_CALLS)
+    cases = [(sz, dt, dist) for sz in sizes
+             for dt, dist in ((torch.int32, False), (torch.float32, True))]
+    max_err = 0.0
+    for i, ((b, c, d), dt, dist) in enumerate(cases):
+        args = hg_case(i, b, c, d, dt, dist, dev)
+        got = hot_gather(*args)
+        want = hot_gather_ref(*args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("out", "hit"), got, want):
+            max_err = max(max_err, max_abs_err(g, w))
+            if not torch.equal(g, w):
+                raise AssertionError(f"hot_gather kernel != plain version at "
+                                     f"{name} (b={b} c={c} d={d} {dt})")
+    return len(cases), max_err
+
+
+def time_hot_gather(dev):
+    """ms per launch at the controller's three call shapes (int32 rows,
+    repeated hot ids); the kernels line takes the largest.  For float32
+    rows, the kernel beside the library's two calls
+    ``(ids[:, None] == hot[None, :]).to(rows.dtype) @ rows``."""
+    from repro_torch.kernels.hot_gather import kernel
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    calls = []
+    for b, c, d in HG_CALLS:
+        ids, hot, rows = hg_case(b + c, b, c, d, torch.int32, False, dev)
+        out, hit = hot_gather(ids, hot, rows)
+        ptrs = (ids.data_ptr(), hot.data_ptr(), rows.data_ptr(),
+                out.data_ptr(), hit.data_ptr())
+        ms = timed(lambda: kernel.launch(*ptrs, b, c, d, rows.dtype, stream))
+        floor = timed(lambda: kernel.launch(*ptrs, b, c, d, rows.dtype,
+                                            stream, empty=True))
+        wrapper_ms = timed(lambda: hot_gather(ids, hot, rows))
+        plain_ms = timed(lambda: hot_gather_ref(ids, hot, rows))
+        # inputs once, outputs once; a compare per (id, hot id) and an add
+        # per match and column
+        matches = int((ids[:, None] == hot[None, :]).sum())
+        nbytes = 4 * (b + c + c * d + b * d + b)
+        f_ids, f_hot, f_rows = hg_case(b + c, b, c, d, torch.float32, True,
+                                       dev)
+        kernel_f32_ms = timed(lambda: hot_gather(f_ids, f_hot, f_rows))
+        library_f32_ms = timed(lambda: (f_ids[:, None] == f_hot[None, :])
+                               .to(f_rows.dtype) @ f_rows)
+        calls.append(dict(shape=dict(b=b, c=c, d=d), ms=ms,
+                          launch_floor_ms=floor, wrapper_ms=wrapper_ms,
+                          plain_ms=plain_ms, wrapper_f32_ms=kernel_f32_ms,
+                          library_f32_two_calls_ms=library_f32_ms,
+                          **bound(nbytes, b * c + matches * d)))
+    return calls
 
 
 # --------------------------------------------------------------------------
@@ -185,11 +378,40 @@ def clone_tree(x):
     return x
 
 
+@contextlib.contextmanager
+def counting_plain_versions():
+    """Count every call of the kernels' plain versions (the dispatchers
+    look them up on their modules at each call)."""
+    from repro_torch.kernels.cms import ref as cms_ref
+    from repro_torch.kernels.hot_gather import ref as hg_ref
+    from repro_torch.kernels.subround import ref as sr_ref
+
+    targets = {"subround": (sr_ref, "subround_ref"),
+               "cms": (cms_ref, "cms_update_query_fast"),
+               "cms_one_hot": (cms_ref, "cms_update_query_ref"),
+               "hot_gather": (hg_ref, "hot_gather_ref")}
+    calls = {k: 0 for k in targets}
+    real = {k: getattr(m, f) for k, (m, f) in targets.items()}
+
+    def counted(key):
+        def fn(*a, **k):
+            calls[key] += 1
+            return real[key](*a, **k)
+        return fn
+
+    for key, (mod, fn_name) in targets.items():
+        setattr(mod, fn_name, counted(key))
+    try:
+        yield calls
+    finally:
+        for key, (mod, fn_name) in targets.items():
+            setattr(mod, fn_name, real[key])
+
+
 def run_main_path(dev):
     from repro_torch import kernels as kn
     from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
     from repro_torch.interop import to_numpy
-    from repro_torch.kernels.subround import ref as ref_mod
     from repro_torch.kvstore.simulator import RackSimulator
     from repro_torch.kvstore.workload import Workload
 
@@ -206,16 +428,8 @@ def run_main_path(dev):
     start = clone_tree(sim.carry)
     gen_state = sim.carry.draws.get_state()
 
-    ref_calls = [0]
-    real_ref = ref_mod.subround_ref
-
-    def counting_ref(*a, **k):
-        ref_calls[0] += 1
-        return real_ref(*a, **k)
-
-    ref_mod.subround_ref = counting_ref
     seconds = WINDOWS * RACK.window_us * 1e-6
-    try:
+    with counting_plain_versions() as plain_calls:
         kn.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -227,9 +441,9 @@ def run_main_path(dev):
         if n_win != WINDOWS or launches != RACK.subrounds * WINDOWS:
             raise AssertionError(f"{launches} subround launches in {n_win} "
                                  f"windows; want {RACK.subrounds} per window")
-        if ref_calls[0]:
-            raise AssertionError(f"the plain subround ran {ref_calls[0]} "
-                                 f"times on the kernel path")
+        if any(plain_calls.values()):
+            raise AssertionError(f"plain versions ran on the kernel path: "
+                                 f"{plain_calls}")
         cuda_carry = to_numpy(sim.carry)
         rx_sw = res.traces["rx_switch"].astype(np.int64).sum()
         rx_srv = res.traces["rx_server"].astype(np.int64).sum()
@@ -258,8 +472,8 @@ def run_main_path(dev):
             wall_ref = time.perf_counter() - t0
         finally:
             kn.set_kernel_backend(None)
-        if ref_calls[0] != RACK.subrounds * WINDOWS:
-            raise AssertionError(f"plain replay ran {ref_calls[0]} subrounds")
+        if plain_calls["subround"] != RACK.subrounds * WINDOWS:
+            raise AssertionError(f"plain replay ran {plain_calls} calls")
         for k, v in res.traces.items():
             if not np.array_equal(v, res_ref.traces[k]):
                 raise AssertionError(f"replay differs in metric {k}")
@@ -304,8 +518,153 @@ def run_main_path(dev):
               profiled_wall_ms_per_window=prof_wall * 1e3 / prof_windows,
               device_idle_share=1 - busy_ms_per_window / (wall * 1e3 / n_win),
               device_idle_share_profiled=1 - dev_us / 1e6 / prof_wall)
-    finally:
-        ref_mod.subround_ref = real_ref
+    return launches
+
+
+def run_control_plane(dev):
+    """The periodic control plane at the paper's scale (module docstring,
+    phase 5).  Returns the launches of each kernel in the run."""
+    from repro_torch import kernels as kn
+    from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
+    from repro_torch.interop import to_numpy
+    from repro_torch.kvstore.simulator import RackSimulator
+    from repro_torch.kvstore.workload import Workload
+
+    rack = dataclasses.replace(RACK, track_popularity=True)
+    wl = Workload(WORKLOAD, device=dev)
+    sim = RackSimulator(rack, wl)
+    sim.preload(wl.hottest_keys(rack.cache_entries))
+    start = clone_tree(sim.carry)
+    gen_state = sim.carry.draws.get_state()
+    act0, perm0 = sim.controller.active_size, wl._perm_np.copy()
+
+    def drive():
+        """The three phases; returns their results and every period's
+        update."""
+        results, updates = [], []
+        for p in range(CP_PHASES):
+            if p:
+                wl.hot_in_swap(CP_SWAP)
+            results.append(sim.run(
+                CP_PHASE_S, controller_period_s=CP_PERIOD_S,
+                on_period=lambda s, w: updates.append(s._last_update)))
+        return results, updates
+
+    def rewind():
+        sim.carry = clone_tree(start)
+        sim.carry.draws.set_state(gen_state)
+        sim.controller.active_size = act0
+        wl._perm_np[:] = perm0
+        wl.perm = torch.from_numpy(perm0.copy()).to(dev)
+
+    period_w = int(round(CP_PERIOD_S / (rack.window_us * 1e-6)))
+    n_win = CP_PHASES * int(round(CP_PHASE_S / (rack.window_us * 1e-6)))
+    n_periods = n_win // period_w
+    want = {"subround": rack.subrounds * n_win, "cms": n_win,
+            "hot_gather": 3 * n_periods}
+    with counting_plain_versions() as plain_calls:
+        kn.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, updates = drive()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kn.LAUNCHES)
+        if launches != want or len(updates) != n_periods:
+            raise AssertionError(f"control plane launched {launches} in "
+                                 f"{len(updates)} periods; want {want}")
+        if any(plain_calls.values()):
+            raise AssertionError(f"plain versions ran on the kernel path: "
+                                 f"{plain_calls}")
+        cuda_carry = to_numpy(sim.carry)
+        act_cuda = sim.controller.active_size
+        win_s = rack.window_us * 1e-6
+        ppp = n_periods // CP_PHASES      # periods per phase
+        per_phase = []
+        for res in results:
+            rx = (res.traces["rx_switch"].astype(np.int64)
+                  + res.traces["rx_server"].astype(np.int64))
+            q = len(rx) // 4
+            per_phase.append(dict(
+                early_rps=float(rx[:q].sum() / (q * win_s)),
+                late_rps=float(rx[-q:].sum() / (q * win_s)),
+                overflow_ratio=res.overflow_ratio(),
+                inserted=int(sum(int(u.n_insert.sum()) for u in
+                                 updates[len(per_phase) * ppp:
+                                         (len(per_phase) + 1) * ppp]))))
+        phase("control_plane", windows=n_win, periods=n_periods,
+              seconds=round(wall, 3), windows_per_s=round(n_win / wall, 1),
+              phases=per_phase, active_size=act_cuda,
+              recovery=min(per_phase[1]["late_rps"], per_phase[2]["late_rps"])
+              / max(per_phase[0]["late_rps"], 1.0),
+              launches=launches,
+              peak_device_mib=round(torch.cuda.max_memory_allocated(dev)
+                                    / 2**20, 1))
+        if not all(p["late_rps"] > 0 for p in per_phase):
+            raise AssertionError("the rack served nothing in a phase")
+        if not any(p["inserted"] for p in per_phase[1:]):
+            raise AssertionError("the controller inserted nothing after "
+                                 "the churn")
+
+        # the same draws, carry and workload through the plain versions
+        rewind()
+        kn.set_kernel_backend("ref")
+        try:
+            t0 = time.perf_counter()
+            results_ref, updates_ref = drive()
+            torch.cuda.synchronize()
+            wall_ref = time.perf_counter() - t0
+        finally:
+            kn.set_kernel_backend(None)
+        if (plain_calls["subround"], plain_calls["cms"],
+                plain_calls["hot_gather"]) != tuple(want.values()):
+            raise AssertionError(f"plain replay ran {plain_calls} calls")
+        for res, res_ref in zip(results, results_ref):
+            for k, v in res.traces.items():
+                if not np.array_equal(v, res_ref.traces[k]):
+                    raise AssertionError(f"control-plane replay differs in "
+                                         f"metric {k}")
+        n_leaves = compare_trees(cuda_carry, to_numpy(sim.carry), "carry")
+        n_upd = sum(compare_trees(u, u_ref, f"update {i}") for i, (u, u_ref)
+                    in enumerate(zip(updates, updates_ref)))
+        if sim.controller.active_size != act_cuda:
+            raise AssertionError("replay differs in active_size")
+        phase("control_plane_replay_plain", windows=n_win,
+              seconds=round(wall_ref, 3), equal_leaves=n_leaves,
+              equal_metrics=len(results[0].traces) * len(results),
+              equal_update_leaves=n_upd)
+
+        # what the profiler sees of one period of the kernel path
+        rewind()
+        kn.reset_launch_counts()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            sim.run_periods(1, period_w)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        dev_events = [e for e in prof.key_averages()
+                      if getattr(e, "device_type", None)
+                      == torch.autograd.DeviceType.CUDA]
+        by_kernel = {k: sum(e.count for e in dev_events if f"{k}_kernel"
+                            in e.key) for k in want}
+        us_by_kernel = {k: sum(getattr(e, "self_device_time_total", 0)
+                               for e in dev_events if f"{k}_kernel" in e.key)
+                        for k in want}
+        if by_kernel != {"subround": rack.subrounds * period_w,
+                         "cms": period_w, "hot_gather": 3}:
+            raise AssertionError(f"profiler saw {by_kernel} in one period")
+        dev_us = sum(getattr(e, "self_device_time_total", 0)
+                     for e in dev_events)
+        busy = dev_us / 1e3 / period_w
+        phase("control_plane_profile", windows=period_w,
+              kernels_seen=by_kernel, kernel_device_us=us_by_kernel,
+              device_kernels=sum(e.count for e in dev_events),
+              device_busy_ms_per_window=busy,
+              wall_ms_per_window=wall * 1e3 / n_win,
+              profiled_wall_ms_per_window=prof_wall * 1e3 / period_w,
+              device_idle_share=1 - busy / (wall * 1e3 / n_win))
     return launches
 
 
@@ -324,7 +683,10 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "smoke run needs a CUDA card")
-    from repro_torch.kernels.subround import kernel
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cms import kernel as cms_kernel
+    from repro_torch.kernels.hot_gather import kernel as hg_kernel
+    from repro_torch.kernels.subround import kernel as sr_kernel
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -335,29 +697,62 @@ def main():
     phase("device", nvidia_smi=smi, torch_device=name,
           torch=torch.__version__, cuda=torch.version.cuda)
 
+    libs = [sr_kernel.LIB, cms_kernel.LIB, hg_kernel.LIB]
     t0 = time.perf_counter()
-    lib, log = kernel.build(verbose=True)
-    kernel.library()
-    phase("build", seconds=round(time.perf_counter() - t0, 2),
-          library=os.path.relpath(lib, HERE),
-          ptxas=[ln.strip() for ln in log.splitlines() if "ptxas" in ln])
+    built = _build.build_all(libs, verbose=True)
+    for kl in libs:
+        kl.library()
+    phase("build", seconds=round(time.perf_counter() - t0, 2), kernels={
+        kl.name: dict(library=os.path.relpath(path, HERE),
+                      ptxas=[ln.strip() for ln in log.splitlines()
+                             if "ptxas" in ln])
+        for kl, (path, log) in zip(libs, built)})
 
-    n_cases, max_err = check_kernel(dev)
-    timing = time_kernel(dev)
-    phase("kernel_vs_plain", cases=n_cases, equal=True, max_abs_err=max_err,
-          **timing)
+    n_cases, sr_err = check_kernel(dev)
+    sr_time = time_kernel(dev)
+    phase("kernel_vs_plain", cases=n_cases, equal=True, max_abs_err=sr_err,
+          **sr_time)
+    n_cases, cms_err = check_cms(dev)
+    cms_time = time_cms(dev)
+    phase("cms_vs_plain", cases=n_cases, equal=True, max_abs_err=cms_err,
+          **cms_time)
+    n_cases, hg_err = check_hot_gather(dev)
+    hg_calls = time_hot_gather(dev)
+    phase("hot_gather_vs_plain", cases=n_cases, equal=True,
+          max_abs_err=hg_err, calls=hg_calls)
 
-    launches = run_main_path(dev)
+    main_launches = run_main_path(dev)
+    cp_launches = run_control_plane(dev)
 
-    print(json.dumps({"kernels": [{
-        "name": "subround", "route": "cuda",
-        "source": "src/repro_torch/kernels/subround/kernel.cu",
-        "replaces": "src/repro/kernels/subround/kernel.py:32",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None,
-    }]}))
+    def launches(k):
+        return dict(launches=(k == "subround") * main_launches
+                    + cp_launches[k],
+                    launches_by_path=dict(
+                        main_path=(k == "subround") * main_launches,
+                        control_plane=cp_launches[k]))
+
+    hg = hg_calls[1]          # ids [2048] against hot [2048], the largest
+    record = [
+        dict(name="subround", route="cuda",
+             source="src/repro_torch/kernels/subround/kernel.cu",
+             replaces="src/repro/kernels/subround/kernel.py:32",
+             **launches("subround"), max_abs_err=sr_err, ms=sr_time["ms"],
+             plain_ms=sr_time["plain_ms"], bound_ms=sr_time["bound_ms"],
+             bound_by=sr_time["bound_by"], library_ms=None),
+        dict(name="cms", route="cuda",
+             source="src/repro_torch/kernels/cms/kernel.cu",
+             replaces="src/repro/kernels/cms/kernel.py:26",
+             **launches("cms"), max_abs_err=cms_err, ms=cms_time["ms"],
+             plain_ms=cms_time["plain_ms"], bound_ms=cms_time["bound_ms"],
+             bound_by=cms_time["bound_by"], library_ms=None),
+        dict(name="hot_gather", route="cuda",
+             source="src/repro_torch/kernels/hot_gather/kernel.cu",
+             replaces="src/repro/kernels/hot_gather/kernel.py:22",
+             **launches("hot_gather"), max_abs_err=hg_err, ms=hg["ms"],
+             plain_ms=hg["plain_ms"], bound_ms=hg["bound_ms"],
+             bound_by=hg["bound_by"], library_ms=None),
+    ]
+    print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -77,6 +77,17 @@ def hash128_u32_np(kidx: np.ndarray) -> np.ndarray:
     return _splitmix32_np(lanes)
 
 
+def fold_hash(hkey: torch.Tensor, width: int, salt: int = 0) -> torch.Tensor:
+    """Fold int32[..., 4] hash words into an index in ``[0, width)``:
+    int32[...].  Logical shifts and an unsigned ``%`` on the uint32 words,
+    as the reference's uint32 arithmetic does."""
+    salt32 = (salt * 0x9E3779B9 + 0x85EBCA6B) & _M32
+    w = to_u32(hkey)
+    h = _splitmix32(w[..., 0] ^ salt32)
+    h = h ^ w[..., 1] ^ (w[..., 2] >> 7) ^ ((w[..., 3] << 3) & _M32)
+    return (_splitmix32(h) % width).to(torch.int32)
+
+
 def server_of_key(kidx: torch.Tensor, num_servers: int) -> torch.Tensor:
     """Hash-partition owner of a key: int32[...]."""
     h = _splitmix32(to_u32(kidx) ^ 0xCAFE01)

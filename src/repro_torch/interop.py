@@ -31,11 +31,11 @@ def _is_namedtuple(x) -> bool:
 
 
 def _port_classes() -> dict[str, type]:
-    from repro_torch.core import orbit, pipeline, sketch, types
+    from repro_torch.core import controller, orbit, pipeline, sketch, types
     from repro_torch.kernels.subround import ops
     from repro_torch.kvstore import client, server, simulator, workload
-    mods = (types, pipeline, orbit, sketch, ops, client, server, simulator,
-            workload)
+    mods = (types, pipeline, orbit, sketch, controller, ops, client, server,
+            simulator, workload)
     return {name: obj for m in mods for name, obj in vars(m).items()
             if isinstance(obj, type) and issubclass(obj, tuple)
             and hasattr(obj, "_fields")}

@@ -25,13 +25,15 @@ import torch
 
 # Bind the kernel subpackages BEFORE the same-named dispatchers below, so
 # the dispatcher functions shadow the subpackage attributes for good.
+from . import cms as _cms_pkg  # noqa: F401, E402
+from . import hot_gather as _hot_gather_pkg  # noqa: F401, E402
 from . import subround as _subround_pkg  # noqa: F401, E402
 
 KERNEL_BACKENDS = ("cuda", "ref")
 _ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
 _forced: str | None = None
 
-LAUNCHES: dict[str, int] = {"subround": 0}
+LAUNCHES: dict[str, int] = {"subround": 0, "cms": 0, "hot_gather": 0}
 
 
 def reset_launch_counts() -> None:
@@ -93,3 +95,34 @@ def subround(
             *args, queue_size=queue_size, max_frags=max_frags,
             max_serves=max_serves))
     return _sr(*args, queue_size, max_frags, max_serves)
+
+
+def cms_update_query(hkey, mask, counts, block_b: int = 256):
+    """Fused count-min update + query (paper §3.8 server sketch).
+
+    ``hkey`` int32[B, 4]; ``counts`` int32[..., 5, W] and ``mask``
+    [..., B] carry an optional leading axis of sketches over the one
+    batch.  Returns ``(counts', est int32[..., B])``: each masked lane's
+    estimate against the sketch as of the start of its tile of
+    ``min(block_b, max(8, B))`` lanes.
+    """
+    from .cms import ops
+    from .cms import ref as cms_ref
+
+    if kernel_backend(hkey.device) == "ref":
+        idx = ops.rows_for(hkey, counts.shape[-1])
+        return cms_ref.cms_update_query_fast(
+            idx, mask.to(torch.int32), counts,
+            block_b=ops.tile_for(hkey.shape[0], block_b))
+    return ops.cms_update_query(hkey, mask, counts, block_b)
+
+
+def hot_gather(ids, hot_ids, rows):
+    """Gather-by-id over a hot set: ``(out [B, D], hit int32[B])`` with
+    ``out[b]`` the sum of the rows of every hot id equal to ``ids[b]``."""
+    from .hot_gather import ops
+    from .hot_gather import ref as hg_ref
+
+    if kernel_backend(ids.device) == "ref":
+        return hg_ref.hot_gather_ref(ids, hot_ids, rows)
+    return ops.hot_gather(ids, hot_ids, rows)

@@ -1,0 +1,33 @@
+"""Bind the Hopper hot_gather kernel (``kernel.cu``).
+
+Built by :mod:`repro_torch.kernels._build` into ``.torch_ext_build/`` at
+first use; importing this module builds nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .._build import KernelLibrary
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+LIB = KernelLibrary("hot_gather", Path(__file__).with_name("kernel.cu"),
+                    {"hot_gather_launch": _ARGS,
+                     "hot_gather_empty_launch": _ARGS})
+# row types the kernel takes, by the code kernel.cu switches on
+DTYPES = {torch.int32: 0, torch.float32: 1}
+
+
+def launch(ids: int, hot: int, rows: int, out: int, hit: int, b: int,
+           c: int, d: int, dtype: torch.dtype, stream: int,
+           empty: bool = False) -> None:
+    """Launch on ``stream`` (device addresses of int32 ``ids[B]`` and
+    ``hot[C]``, ``rows[C, D]`` and ``out[B, D]`` of ``dtype``, int32
+    ``hit[B]``).  ``empty`` launches a kernel that does nothing, with the
+    same grid, to time the launch floor."""
+    fn = "hot_gather_empty_launch" if empty else "hot_gather_launch"
+    LIB.call(fn, _P(ids), _P(hot), _P(rows), _P(out), _P(hit), b, c, d,
+             DTYPES[dtype], _P(stream))

@@ -1,0 +1,53 @@
+"""Wrapper for the hot_gather kernel.
+
+On CUDA tensors it launches the Hopper kernel (``kernel.cu``) for int32
+and float32 rows; on CPU tensors it runs the plain version
+(``ref.hot_gather_ref``).  The reference pads ids, hot ids and rows to its
+TPU tiles; the kernel takes any B, C and D, so nothing is padded.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+
+I32 = torch.int32
+
+
+def hot_gather(ids, hot_ids, rows):
+    """``(out [B, D], hit int32[B])`` for int32 ``ids[B]``, ``hot_ids[C]``
+    and ``rows[C, D]``."""
+    dev = ids.device
+    if dev.type == "cpu":
+        return ref.hot_gather_ref(ids, hot_ids, rows)
+    if dev.type != "cuda":
+        raise ValueError(f"hot_gather: no kernel for device {dev}")
+
+    from repro_torch.kernels import LAUNCHES
+
+    from . import kernel
+
+    b, (c, d) = ids.shape[0], rows.shape
+    if d < 1:
+        raise ValueError("hot_gather: the kernel needs rows of width >= 1")
+    if rows.dtype not in kernel.DTYPES:
+        raise ValueError(f"hot_gather: the kernel takes int32 or float32 "
+                         f"rows, not {rows.dtype}")
+    for name, a, dt, shp in (("ids", ids, I32, (b,)),
+                             ("hot_ids", hot_ids, I32, (c,)),
+                             ("rows", rows, rows.dtype, (c, d))):
+        if a.device != dev or a.dtype != dt or tuple(a.shape) != shp:
+            raise ValueError(f"hot_gather: {name} is {a.dtype}"
+                             f"{tuple(a.shape)} on {a.device}; the kernel "
+                             f"takes {dt}{shp} on {dev}")
+    ids, hot_ids, rows = ids.contiguous(), hot_ids.contiguous(), \
+        rows.contiguous()
+    out = torch.empty((b, d), dtype=rows.dtype, device=dev)
+    hit = torch.empty((b,), dtype=I32, device=dev)
+    if b == 0:
+        return out, hit
+    kernel.launch(ids.data_ptr(), hot_ids.data_ptr(), rows.data_ptr(),
+                  out.data_ptr(), hit.data_ptr(), b, c, d, rows.dtype,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["hot_gather"] += 1
+    return out, hit

@@ -3,8 +3,9 @@
 Each server is a FIFO ring drained at ``cap_per_window`` requests per
 window; arrivals beyond the queue depth drop.  Served requests become
 replies (R-REQ -> R-REP, W-REQ -> W-REP, F-REQ -> F-REP, CRN-REQ -> R-REP),
-``max_frags`` lanes each.  Popularity tracking (``track_popularity``)
-belongs to the control-plane slice and raises here.
+``max_frags`` lanes each.  With ``track_popularity`` every server's
+count-min tracker counts its accepted reads, all servers in one count-min
+kernel launch per window.
 """
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ import torch
 
 from repro_torch.core.hashing import hash128_u32
 from repro_torch.core.scatter_free import unique_writer
-from repro_torch.core.sketch import PopularityTracker, init_tracker
+from repro_torch.core.sketch import (
+    PopularityTracker, init_tracker, report_and_reset, track_fused,
+)
 from repro_torch.core.types import (
     COUNTER_DTYPE, OP_CRN_REQ, OP_F_REP, OP_F_REQ, OP_R_REP, OP_R_REQ,
     OP_W_REP, OP_W_REQ, PacketBatch, resolve_device, sat_add,
@@ -82,10 +85,6 @@ def server_step(st: ServerState, cfg: ServerConfig, pkts: PacketBatch,
                 now: torch.Tensor) -> tuple[ServerState, ServerStepOut]:
     """Enqueue this window's arrivals, serve up to ``cap`` per server and
     emit the reply lanes."""
-    if cfg.track_popularity:
-        raise NotImplementedError(
-            "server popularity tracking (track_popularity=True) is not "
-            "ported yet: ROADMAP Queue 1 item 7 (control plane)")
     n, q, cap, f = (cfg.num_servers, cfg.queue_depth, cfg.cap_per_window,
                     cfg.max_frags)
     pad = cfg.value_pad
@@ -115,6 +114,13 @@ def server_step(st: ServerState, cfg: ServerConfig, pkts: PacketBatch,
         qlen=st.qlen + new_counts, rear=(st.rear + new_counts) % q,
         dropped=sat_add(st.dropped, dropped_now),
     )
+
+    # ---- popularity tracking on accepted reads (CMS + candidates) ----------
+    if cfg.track_popularity:
+        is_read = accepted & (pkts.op == OP_R_REQ)
+        per_srv_mask = (onehot & is_read[:, None]).T     # [n, B]
+        st = st._replace(tracker=track_fused(st.tracker, pkts.kidx,
+                                             per_srv_mask))
 
     # ---- serve up to cap per server -----------------------------------------
     j = ar(cap)[None, :]
@@ -181,3 +187,20 @@ def server_step(st: ServerState, cfg: ServerConfig, pkts: PacketBatch,
     )
     return st, ServerStepOut(replies=replies, served_now=n_serve,
                              dropped_now=dropped_now, backlog=st.qlen)
+
+
+def server_reports_traced(st: ServerState, k: int,
+                          ) -> tuple[ServerState, torch.Tensor, torch.Tensor]:
+    """Per-server top-k report + tracker reset (paper §3.8), on the device.
+
+    Returns ``(st', top_kidx int32[n_srv, k], top_est int32[n_srv, k])``.
+    """
+    fresh, top_k, top_e = report_and_reset(st.tracker, k)
+    return st._replace(tracker=fresh), top_k, top_e
+
+
+def server_reports(st: ServerState, k: int):
+    """Host-side: per-server top-k report + tracker reset (paper §3.8)."""
+    st2, top_k, top_e = server_reports_traced(st, k)
+    top_k, top_e = top_k.cpu().numpy(), top_e.cpu().numpy()
+    return st2, [(top_k[s], top_e[s]) for s in range(top_k.shape[0])]

@@ -9,9 +9,12 @@ servers' replies become next window's switch ingress.  Every ingress
 source is kept subround-major ``[R, L]``.
 
 A chunk of windows is an eager Python loop; nothing in it waits for the
-device until the caller reads the metrics.  The ``netcache`` and
-``nocache`` schemes, the periodic controller and server popularity
-tracking are later slices and raise ``NotImplementedError``.
+device until the caller reads the metrics.  With a controller period, a
+chunk is whole periods: ``period_w`` windows, then one device-side cache
+update (:func:`controller_window_apply`), and the host reads only the
+metrics, the updates and ``active_size`` at the end of the chunk.  The
+``netcache`` and ``nocache`` schemes are a later slice and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import pipeline
-from repro_torch.core.controller import CacheController, ControllerConfig
+from repro_torch.core.controller import (
+    CacheController, ControllerConfig, TracedUpdate, controller_step,
+)
 from repro_torch.core.hashing import hash128_u32, server_of_key
 from repro_torch.core.types import (
     OP_F_REQ, OP_NONE, ROUTE_CLIENT, ROUTE_SERVER, PacketBatch, empty_batch,
@@ -31,7 +36,10 @@ from repro_torch.core.types import (
 from repro_torch.interop import to_numpy
 
 from . import client as cl
-from .server import ServerConfig, ServerState, init_servers, server_step
+from .server import (
+    ServerConfig, ServerState, init_servers, server_reports,
+    server_reports_traced, server_step,
+)
 from .workload import Workload, WorkloadArrays
 
 HDR_BYTES = pipeline.HDR_BYTES
@@ -175,6 +183,57 @@ def build_fetch_batch(cfg: RackConfig, vlen_table: torch.Tensor,
     return interleave(fb, cfg.subrounds)
 
 
+def traced_fetch_batch(cfg: RackConfig, vlen_table: torch.Tensor,
+                       fetch_kidx: torch.Tensor, fetch_valid: torch.Tensor,
+                       ) -> PacketBatch:
+    """Device twin of :func:`build_fetch_batch` for the F-REQ lanes of a
+    :class:`~repro_torch.core.controller.TracedUpdate`; lanes beyond
+    ``fetch_lanes`` drop, as the host path truncates its list."""
+    w = cfg.fetch_lanes
+    n = fetch_kidx.shape[0]
+    dev = fetch_kidx.device
+    if n < w:
+        fetch_kidx = torch.cat([fetch_kidx, torch.full((w - n,), -1,
+                                                       dtype=I32, device=dev)])
+        fetch_valid = torch.cat([fetch_valid, torch.zeros(
+            w - n, dtype=torch.bool, device=dev)])
+    else:
+        fetch_kidx, fetch_valid = fetch_kidx[:w], fetch_valid[:w]
+    safe_k = torch.where(fetch_valid, fetch_kidx, 0)
+    fb = empty_batch(w, cfg.value_pad, dev)
+    fb = fb._replace(
+        op=torch.where(fetch_valid, OP_F_REQ, fb.op),
+        kidx=torch.where(fetch_valid, fetch_kidx, fb.kidx),
+        hkey=torch.where(fetch_valid[:, None], hash128_u32(safe_k), fb.hkey),
+        vlen=torch.where(fetch_valid, vlen_table[safe_k.long()], fb.vlen),
+        server=torch.where(fetch_valid,
+                           server_of_key(safe_k, cfg.num_servers), fb.server),
+        valid=fetch_valid,
+    )
+    return interleave(fb, cfg.subrounds)
+
+
+def controller_window_apply(cfg: RackConfig, ctrl_cfg: ControllerConfig,
+                            wl: WorkloadArrays, carry: SimCarry,
+                            active_size: torch.Tensor):
+    """One control-plane period boundary on the device (orbitcache).
+
+    Pulls the servers' top-k reports (resetting their trackers), runs
+    :func:`~repro_torch.core.controller.controller_step` over the switch's
+    period counters and queues the F-REQs for the next window.  Returns
+    ``(carry', active', TracedUpdate, (top_kidx, top_est))``.
+    """
+    servers, top_k, top_e = server_reports_traced(carry.servers,
+                                                  ctrl_cfg.k_report)
+    sw = carry.policy
+    sw2, active2, upd = controller_step(
+        sw, top_k.reshape(-1), top_e.reshape(-1), sw.counters.overflow,
+        sw.counters.cached_reqs, active_size, ctrl_cfg)
+    fetch = traced_fetch_batch(cfg, wl.vlen, upd.fetch_kidx, upd.fetch_valid)
+    return (carry._replace(policy=sw2, servers=servers, fetch=fetch),
+            active2, upd, (top_k, top_e))
+
+
 def generate_requests(cfg: RackConfig, client_cfg: cl.ClientConfig,
                       wl: WorkloadArrays, carry: SimCarry):
     """Draw this window's open-loop client batch: ``(clients', reqs)``."""
@@ -277,19 +336,61 @@ def process_window(cfg: RackConfig, server_cfg: ServerConfig,
     return new_carry, metrics
 
 
+def period_windows(controller_period_s: float | None,
+                   window_us: float) -> int | None:
+    """Control-plane period length in windows (None = no periodic
+    controller), rounded as the reference rounds it."""
+    if not controller_period_s:
+        return None
+    return max(1, int(round(controller_period_s / (window_us * 1e-6))))
+
+
 def chunked_run(total_windows: int, chunk_windows: int,
-                run_windows_fn) -> list[dict[str, np.ndarray]]:
-    """Window chunks rounded to whole chunks (the no-period mode of the
-    reference's ``chunked_run``).  Returns the per-chunk trace dicts."""
+                period_w: int | None, use_traced_controller: bool,
+                run_periods_fn, run_windows_fn,
+                on_period=None) -> list[dict[str, np.ndarray]]:
+    """The chunk loop behind ``run()`` (the reference's rules).
+
+    * ``period_w`` set: whole periods, the window count rounded to the
+      nearest multiple of ``period_w`` (at least one period), in chunks of
+      equally many periods (one per chunk when ``on_period`` needs its
+      callback); ``run_periods_fn`` when the scheme has a controller,
+      else plain window chunks on the period cadence;
+    * no period: window chunks rounded to whole chunks.
+
+    ``on_period`` receives the number of windows completed.  Returns the
+    per-chunk trace dicts.
+    """
     traces: list[dict[str, np.ndarray]] = []
-    total = max(chunk_windows,
-                (total_windows // chunk_windows) * chunk_windows)
-    done = 0
-    while done < total:
-        n = min(chunk_windows, total - done)
-        traces.append(run_windows_fn(n))
-        done += n
+    if period_w:
+        total_periods = max(1, int(round(total_windows / period_w)))
+        periods_per_chunk = (1 if on_period
+                             else max(1, chunk_windows // period_w))
+        while total_periods % periods_per_chunk:
+            periods_per_chunk -= 1
+        step = (run_periods_fn if use_traced_controller
+                else (lambda n_p, pw: run_windows_fn(n_p * pw)))
+        done_p = 0
+        while done_p < total_periods:
+            traces.append(step(periods_per_chunk, period_w))
+            done_p += periods_per_chunk
+            if on_period:
+                on_period(done_p * period_w)
+    else:
+        total = max(chunk_windows,
+                    (total_windows // chunk_windows) * chunk_windows)
+        done = 0
+        while done < total:
+            n = min(chunk_windows, total - done)
+            traces.append(run_windows_fn(n))
+            done += n
     return traces
+
+
+def _stack_metrics(ys: list[WindowMetrics]) -> dict[str, np.ndarray]:
+    """Per-window metrics as numpy arrays with the reference's dtypes."""
+    return {k: to_numpy(torch.stack([getattr(m, k) for m in ys]), k)
+            for k in WindowMetrics._fields}
 
 
 @dataclass
@@ -364,9 +465,6 @@ class RackSimulator:
 
     def __init__(self, cfg: RackConfig, wl: Workload, device=None,
                  draws=None):
-        if cfg.track_popularity:
-            raise _not_ported("server popularity tracking "
-                              "(track_popularity=True)", "Queue 1 item 7")
         self.cfg = cfg
         self.wl = wl
         self.device = resolve_device(device)
@@ -426,19 +524,48 @@ class RackSimulator:
                                    self.key_size, wl, carry)
             ys.append(m)
         self.carry = carry
-        return {k: to_numpy(torch.stack([getattr(m, k) for m in ys]), k)
-                for k in WindowMetrics._fields}
+        return _stack_metrics(ys)
+
+    def run_periods(self, n_periods: int,
+                    period_w: int) -> dict[str, np.ndarray]:
+        """Advance ``n_periods`` control-plane periods of ``period_w``
+        windows each, the cache update on the device after each period.
+        The host reads ``active_size`` and the period updates
+        (``_last_update``, stacked per period) once, at the end."""
+        wl = self.wl.arrays
+        act = torch.tensor(self.controller.active_size, dtype=I32,
+                           device=self.device)
+        carry, ys, upds = self.carry, [], []
+        for _ in range(n_periods):
+            for _ in range(period_w):
+                carry, m = window_step(self.cfg, self.server_cfg,
+                                       self.client_cfg, self.key_size, wl,
+                                       carry)
+                ys.append(m)
+            carry, act, upd, _ = controller_window_apply(
+                self.cfg, self.controller.cfg, wl, carry, act)
+            upds.append(upd)
+        self.carry = carry
+        self.controller.active_size = int(act)
+        self._last_update = to_numpy(TracedUpdate(
+            *(torch.stack(x) for x in zip(*upds))))
+        return _stack_metrics(ys)
 
     def run(self, sim_seconds: float, chunk_windows: int = 256,
             controller_period_s: float | None = None,
             on_period: Any = None) -> SimResult:
-        """Run the rack for ``sim_seconds`` of simulated time."""
-        if controller_period_s or on_period:
-            raise _not_ported("the periodic controller (controller_period_s)",
-                              "Queue 1 item 7")
+        """Run the rack for ``sim_seconds`` of simulated time.
+
+        With ``controller_period_s`` the run is whole periods, the cache
+        updates on the device (:meth:`run_periods`);
+        ``on_period(sim, windows_done)`` fires after every period."""
         c = self.cfg
         total_windows = int(round(sim_seconds / (c.window_us * 1e-6)))
-        traces = chunked_run(total_windows, chunk_windows, self.run_windows)
+        period_w = period_windows(controller_period_s, c.window_us)
+        traces = chunked_run(
+            total_windows, chunk_windows, period_w,
+            c.scheme == "orbitcache", self.run_periods, self.run_windows,
+            on_period=(lambda w: on_period(self, w)) if on_period else None)
         merged = {k: np.concatenate([t[k] for t in traces], axis=0)
                   for k in traces[0]}
         cs = self.carry.clients
@@ -448,3 +575,18 @@ class RackSimulator:
             hist_server=to_numpy(cs.hist_server, "hist_server"),
             info=dict(scheme=c.scheme,
                       active_size=self.controller.active_size))
+
+    def _control_plane_update(self) -> None:
+        """Host-side cache update (switch counters + server top-k reports,
+        §3.8): the oracle form of :func:`controller_window_apply`."""
+        if self.cfg.scheme != "orbitcache":
+            return
+        servers, reports = server_reports(self.carry.servers,
+                                          self.controller.cfg.k_report)
+        sw = self.carry.policy
+        sw2, info = self.controller.update(
+            sw, reports, int(sw.counters.overflow),
+            int(sw.counters.cached_reqs))
+        self.carry = self.carry._replace(policy=sw2, servers=servers)
+        self.inject_fetches(info.fetches)
+        self._last_update = info

@@ -69,6 +69,15 @@ class Workload:
     def arrays(self) -> WorkloadArrays:
         return WorkloadArrays(cdf=self.cdf, perm=self.perm, vlen=self.vlen)
 
+    def hot_in_swap(self, n_hot: int = 128) -> None:
+        """Swap the ``n_hot`` hottest ranks with the ``n_hot`` coldest
+        (paper §5.3 churn); ``perm`` is rebuilt on the workload's device."""
+        p = self._perm_np
+        hot = p[:n_hot].copy()
+        p[:n_hot] = p[-n_hot:]
+        p[-n_hot:] = hot
+        self.perm = torch.from_numpy(p.copy()).to(self.device)
+
     def hottest_keys(self, k: int) -> np.ndarray:
         return self._perm_np[:k].copy()
 

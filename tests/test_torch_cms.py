@@ -1,0 +1,166 @@
+"""The port's count-min update + query against the JAX reference, exactly.
+
+The JAX ``kernels.cms_update_query`` runs on its ``ref`` backend (the
+tile-ordered gather/scatter oracle) over the whole sweep, and on its
+``interpret`` backend (the Pallas kernel under the interpreter) over a
+subset.  The port's dispatcher, its wrapper and both plain versions (the
+one-hot transcription and the gather/scatter form) must give the same
+sketch and the same estimates, for one sketch and for a leading axis of
+sketches against a JAX ``vmap``, as the servers run it.  On a card, the
+CUDA kernel must equal the plain version.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import kernels as jkn  # noqa: E402
+from repro.core.hashing import hash128_u32 as jax_hash  # noqa: E402
+
+from repro_torch import kernels as kn  # noqa: E402
+from repro_torch.kernels.cms import kernel as cms_kernel  # noqa: E402
+from repro_torch.kernels.cms import ops, ref  # noqa: E402
+
+BATCHES = (1, 7, 8, 45, 256, 257, 600)
+WIDTHS = (64, 512)
+DENSITIES = (0.0, 0.5, 1.0)
+BLOCKS = (32, 256)          # explicit, and the reference's default
+
+
+def make_case(seed, b, w, density, n=None, start=50):
+    """Key hashes (uint32, with repeated keys), an int32 mask and a
+    nonzero starting sketch; ``n`` adds a leading sketch axis."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2 * b + 4, b).astype(np.int32)
+    hk = np.asarray(jax_hash(jnp.asarray(keys)))
+    lead = () if n is None else (n,)
+    mask = (rng.random(lead + (b,)) < density).astype(np.int32)
+    counts = rng.integers(0, start + 1, lead + (5, w)).astype(np.int32)
+    return hk, mask, counts
+
+
+def jax_cms(hk, mask, counts, block_b, backend):
+    """The reference dispatcher on ``backend``; a leading sketch axis goes
+    through ``jax.vmap`` as ``server.py`` runs it."""
+    fn = lambda c, m: jkn.cms_update_query(jnp.asarray(hk), m, c,
+                                           block_b=block_b)
+    if counts.ndim == 3:
+        fn = jax.vmap(fn)
+    jkn.set_kernel_backend(backend)
+    try:
+        out = fn(jnp.asarray(counts), jnp.asarray(mask))
+    finally:
+        jkn.set_kernel_backend(None)
+    return tuple(np.asarray(x) for x in out)
+
+
+def port_forms(hk, mask, counts, block_b):
+    """Every port form of the op on CPU tensors: name -> (counts', est)."""
+    hk_t = torch.from_numpy(hk.view(np.int32).copy())
+    m_t, c_t = torch.from_numpy(mask), torch.from_numpy(counts)
+    idx = ops.rows_for(hk_t, counts.shape[-1])
+    tile = ops.tile_for(hk.shape[0], block_b)
+    return {
+        "dispatcher": kn.cms_update_query(hk_t, m_t, c_t, block_b=block_b),
+        "wrapper": ops.cms_update_query(hk_t, m_t, c_t, block_b=block_b),
+        "fast": ref.cms_update_query_fast(idx, m_t, c_t, block_b=tile),
+        "one_hot": ref.cms_update_query_ref(idx, m_t, c_t, block_b=tile),
+    }
+
+
+def check(hk, mask, counts, block_b, backend, label):
+    want_c, want_e = jax_cms(hk, mask, counts, block_b, backend)
+    for name, (got_c, got_e) in port_forms(hk, mask, counts,
+                                           block_b).items():
+        assert got_c.dtype == torch.int32 and got_e.dtype == torch.int32
+        np.testing.assert_array_equal(got_c.numpy(), want_c,
+                                      err_msg=f"{label} {name} counts")
+        np.testing.assert_array_equal(got_e.numpy(), want_e,
+                                      err_msg=f"{label} {name} est")
+
+
+@pytest.mark.parametrize("block_b", BLOCKS)
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("b", BATCHES)
+def test_cms_matches_jax_ref(b, w, density, block_b):
+    hk, mask, counts = make_case(b * 7 + w, b, w, density)
+    check(hk, mask, counts, block_b, "ref", f"b={b} w={w} p={density}")
+
+
+@pytest.mark.parametrize("b,w,block_b", [(7, 64, 256), (45, 64, 32),
+                                         (257, 64, 256), (600, 512, 256),
+                                         (257, 512, 32)])
+def test_cms_matches_jax_interpret(b, w, block_b):
+    """The Pallas kernel itself, under the interpreter."""
+    hk, mask, counts = make_case(b + w, b, w, 0.5)
+    check(hk, mask, counts, block_b, "interpret", f"b={b} w={w}")
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("b,block_b", [(45, 32), (257, 256), (600, 32)])
+def test_cms_server_axis_matches_jax_vmap(n, b, block_b):
+    """A leading axis of sketches over one batch, each sketch with its own
+    mask, equals the reference vmapped over the servers."""
+    hk, mask, counts = make_case(n * 100 + b, b, 64, 0.5, n=n)
+    check(hk, mask, counts, block_b, "ref", f"n={n} b={b}")
+
+
+def test_cms_server_axis_matches_jax_vmap_interpret():
+    hk, mask, counts = make_case(9, 300, 64, 0.5, n=4)
+    check(hk, mask, counts, 256, "interpret", "n=4 b=300")
+
+
+def test_tile_order_changes_the_estimates():
+    """The estimates depend on the tile (the reason the port keeps the
+    reference's tile rule): a key repeated inside one tile sees none of
+    its own arrivals, across tiles it sees the earlier ones."""
+    hk, mask, counts = make_case(1, 64, 64, 1.0, start=0)
+    _, e8 = port_forms(hk, mask, counts, 8)["fast"]
+    _, e64 = port_forms(hk, mask, counts, 64)["fast"]
+    assert int(e64.sum()) < int(e8.sum())
+    assert ops.tile_for(1) == 8 and ops.tile_for(45) == 45
+    assert ops.tile_for(1408) == 256 and ops.tile_for(600, 32) == 32
+
+
+def test_wrapper_runs_plain_version_on_cpu():
+    hk, mask, counts = make_case(3, 45, 64, 0.5, n=4)
+    kn.reset_launch_counts()
+    port_forms(hk, mask, counts, 256)
+    assert kn.LAUNCHES["cms"] == 0
+
+
+def test_kernel_refuses_a_sketch_over_shared_memory():
+    """A width whose sketch exceeds one block's shared memory is refused
+    before anything is built or launched."""
+    with pytest.raises(ValueError, match="shared memory"):
+        cms_kernel.launch(0, 0, 0, 0, 0, 1, 8, 20_000, 8, 0)
+    assert cms_kernel.smem_bytes(2048) <= 232_448
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version():
+    """On the card: the Hopper kernel equals the plain version, exactly,
+    including the rack's shape (32 sketches of [5, 2048], 1,408 lanes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    cases = [(b, w, p, blk, None) for b in BATCHES for w in WIDTHS
+             for p in DENSITIES for blk in BLOCKS]
+    cases += [(1408, 2048, 0.05, 256, 32), (257, 64, 0.5, 32, 4)]
+    for i, (b, w, p, blk, n) in enumerate(cases):
+        hk, mask, counts = make_case(i, b, w, p, n=n)
+        hk_t = torch.from_numpy(hk.view(np.int32)).cuda()
+        m_t, c_t = torch.from_numpy(mask).cuda(), \
+            torch.from_numpy(counts).cuda()
+        idx = ops.rows_for(hk_t, w)
+        tile = ops.tile_for(b, blk)
+        before = kn.LAUNCHES["cms"]
+        got = ops.update_query(idx, m_t, c_t, tile)
+        torch.cuda.synchronize()
+        assert kn.LAUNCHES["cms"] == before + 1
+        want = ref.cms_update_query_fast(idx, m_t, c_t, block_b=tile)
+        for g, wt in zip(got, want):
+            assert torch.equal(g, wt), (b, w, p, blk, n)

@@ -66,3 +66,31 @@ def test_sat_add_clamps_at_uint32_max():
     assert out.tolist() == [7, 5, COUNTER_MAX, COUNTER_MAX]
     assert sat_add(acc, 3).tolist() == [3, 8, COUNTER_MAX, COUNTER_MAX]
     assert to_numpy(out, "hits").dtype == np.uint32
+
+
+@pytest.mark.parametrize("width", [2048, 64, 1000])
+@pytest.mark.parametrize("salt", range(5))
+def test_fold_hash_matches_reference(width, salt):
+    """Random and edge key hashes (ids 0, -1, 2**31 - 1 among them) fold
+    to the reference's columns, for power-of-two widths and one that is
+    not (the unsigned ``%``), with every count-min salt."""
+    hk = jh.hash128_u32(jnp.asarray(ids(3 + salt)))
+    want = np.asarray(jh.fold_hash(hk, width, salt=salt))
+    got = th.fold_hash(torch.from_numpy(np.asarray(hk).view(np.int32)),
+                       width, salt=salt).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fold_hash_shifts_are_logical():
+    """Hash words with the top bit set: ``>> 7`` must not drag the sign
+    in, and ``<< 3`` must drop the bits above 32."""
+    words = np.array([[0x80000000, 0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF],
+                      [0, 0, 0x80000001, 0xE0000000],
+                      [0xDEADBEEF, 0x12345678, 0xF0F0F0F0, 0x1FFFFFFF]],
+                     np.uint32)
+    for salt in range(5):
+        want = np.asarray(jh.fold_hash(jnp.asarray(words), 1000, salt=salt))
+        got = th.fold_hash(torch.from_numpy(words.view(np.int32)), 1000,
+                           salt=salt).numpy()
+        np.testing.assert_array_equal(got, want)

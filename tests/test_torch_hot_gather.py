@@ -1,0 +1,161 @@
+"""The port's hot_gather against the JAX reference.
+
+``out[b] = sum_c [ids[b] == hot[c]] * rows[c]`` over every match, and
+``hit[b]`` = any match.  int32 rows (the controller's path) must equal the
+JAX ``hot_gather_ref`` and the Pallas kernel under the interpreter
+exactly, with repeated hot ids and the sentinels (-1 and -2 among the hot
+ids, -3 among the ids, as the controller uses them).
+float32 rows must be exact where the hot ids are distinct (one term per
+output), and within rtol 1e-6 where they repeat: a float sum over several
+matches depends on its order, and XLA's dot and PyTorch's sum differ in
+it.  On a card, the CUDA kernel must equal the plain version.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro import kernels as jkn  # noqa: E402
+from repro.kernels.hot_gather.ref import hot_gather_ref as jax_ref  # noqa: E402
+
+from repro_torch import kernels as kn  # noqa: E402
+from repro_torch.kernels.hot_gather import ops, ref  # noqa: E402
+
+SIZES = [(b, c, d) for b in (1, 128, 300) for c in (1, 128, 200)
+         for d in (1, 3, 64)]
+
+
+def make_case(seed, b, c, d, dtype, distinct):
+    """ids with misses and sentinels, hot ids (repeated unless
+    ``distinct``) with sentinels, rows of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    universe = 2 * c + 4
+    if distinct:
+        hot = rng.choice(universe, c, replace=False).astype(np.int32)
+        hot[rng.integers(0, c)] = -2           # one sentinel lane
+    else:
+        hot = rng.integers(0, max(2, c // 3), c).astype(np.int32)
+        hot[rng.random(c) < 0.1] = -2
+        hot[rng.random(c) < 0.05] = -1
+    # ids never carry -1: the reference's wrapper pads the hot ids with -1
+    # (and the ids with -2), so an id of -1 would match its padding; the
+    # controller's ids use -3
+    ids = rng.integers(0, universe, b).astype(np.int32)
+    ids[rng.random(b) < 0.1] = -3
+    if dtype == np.int32:
+        rows = rng.integers(-1000, 1000, (c, d)).astype(np.int32)
+    else:
+        rows = rng.normal(size=(c, d)).astype(np.float32)
+    return ids, hot, rows
+
+
+def jax_forms(ids, hot, rows):
+    """The JAX oracle, and the Pallas kernel under the interpreter."""
+    out = {"jax_ref": jax_ref(jnp.asarray(ids), jnp.asarray(hot),
+                              jnp.asarray(rows))}
+    jkn.set_kernel_backend("interpret")
+    try:
+        out["jax_interpret"] = jkn.hot_gather(
+            jnp.asarray(ids), jnp.asarray(hot), jnp.asarray(rows))
+    finally:
+        jkn.set_kernel_backend(None)
+    return {k: tuple(np.asarray(x) for x in v) for k, v in out.items()}
+
+
+def port_forms(ids, hot, rows):
+    t = lambda a: torch.from_numpy(a)
+    return {"dispatcher": kn.hot_gather(t(ids), t(hot), t(rows)),
+            "wrapper": ops.hot_gather(t(ids), t(hot), t(rows)),
+            "ref": ref.hot_gather_ref(t(ids), t(hot), t(rows))}
+
+
+def check(ids, hot, rows, exact, label, interpret=True):
+    want = jax_forms(ids, hot, rows) if interpret else {
+        "jax_ref": tuple(np.asarray(x) for x in jax_ref(
+            jnp.asarray(ids), jnp.asarray(hot), jnp.asarray(rows)))}
+    for pname, (g_out, g_hit) in port_forms(ids, hot, rows).items():
+        assert g_out.dtype == torch.from_numpy(rows).dtype
+        assert g_hit.dtype == torch.int32
+        for jname, (w_out, w_hit) in want.items():
+            msg = f"{label}: port {pname} vs {jname}"
+            np.testing.assert_array_equal(g_hit.numpy(), w_hit, err_msg=msg)
+            if exact:
+                np.testing.assert_array_equal(g_out.numpy(), w_out,
+                                              err_msg=msg)
+            else:
+                np.testing.assert_allclose(g_out.numpy(), w_out, rtol=1e-6,
+                                           atol=1e-6, err_msg=msg)
+
+
+@pytest.mark.parametrize("b,c,d", SIZES)
+def test_int32_rows_repeated_hot_ids_exact(b, c, d):
+    ids, hot, rows = make_case(b + 3 * c + 7 * d, b, c, d, np.int32, False)
+    check(ids, hot, rows, True, f"int32 b={b} c={c} d={d}",
+          interpret=d == 1 or b == 300)
+
+
+@pytest.mark.parametrize("b,c,d", SIZES)
+def test_float32_rows(b, c, d):
+    seed = 5 * b + c + d
+    ids, hot, rows = make_case(seed, b, c, d, np.float32, True)
+    check(ids, hot, rows, True, f"f32 distinct b={b} c={c} d={d}",
+          interpret=d == 1)
+    ids, hot, rows = make_case(seed, b, c, d, np.float32, False)
+    check(ids, hot, rows, False, f"f32 repeated b={b} c={c} d={d}",
+          interpret=False)
+
+
+def test_controller_shapes_and_sentinels():
+    """The controller's three calls: ids [128] against hot [2048], ids
+    [2048] against hot [2048], and ids [2048] against hot [128] (hit
+    only); report lanes repeat keys across servers."""
+    rng = np.random.default_rng(0)
+    report = rng.integers(0, 400, 2048).astype(np.int32)
+    report[rng.random(2048) < 0.2] = -1
+    est = np.where(report >= 0, rng.integers(0, 5000, 2048), 0
+                   ).astype(np.int32)[:, None]
+    cached = rng.choice(800, 128, replace=False).astype(np.int32)
+    cached[rng.random(128) < 0.2] = -1
+    hot_report = np.where(report >= 0, report, -2).astype(np.int32)
+    ids_report = np.where(report >= 0, report, -3).astype(np.int32)
+    ids_cached = np.where(cached >= 0, cached, -3).astype(np.int32)
+    hot_cached = np.where(cached >= 0, cached, -2).astype(np.int32)
+    zeros = np.zeros((128, 1), np.int32)
+    for ids, hot, rows in ((ids_cached, hot_report, est),
+                           (ids_report, hot_report, est),
+                           (ids_report, hot_cached, zeros)):
+        check(ids, hot, rows, True, f"controller {ids.shape}x{hot.shape}")
+
+
+def test_wrapper_runs_plain_version_on_cpu():
+    ids, hot, rows = make_case(1, 30, 20, 1, np.int32, False)
+    kn.reset_launch_counts()
+    port_forms(ids, hot, rows)
+    assert kn.LAUNCHES["hot_gather"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version():
+    """On the card: the Hopper kernel equals the plain version; int32
+    exactly, float32 exactly for distinct hot ids, else within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    for i, (b, c, d) in enumerate(SIZES + [(2048, 2048, 1), (128, 2048, 1),
+                                           (2048, 128, 1)]):
+        for dtype, distinct in ((np.int32, False), (np.float32, True),
+                                (np.float32, False)):
+            ids, hot, rows = (torch.from_numpy(a).cuda() for a in make_case(
+                i, b, c, d, dtype, distinct))
+            before = kn.LAUNCHES["hot_gather"]
+            g_out, g_hit = ops.hot_gather(ids, hot, rows)
+            torch.cuda.synchronize()
+            assert kn.LAUNCHES["hot_gather"] == before + 1
+            w_out, w_hit = ref.hot_gather_ref(ids, hot, rows)
+            assert torch.equal(g_hit, w_hit), (b, c, d, dtype)
+            if dtype == np.int32 or distinct:
+                assert torch.equal(g_out, w_out), (b, c, d, dtype)
+            else:
+                torch.testing.assert_close(g_out, w_out, rtol=1e-6,
+                                           atol=1e-6)

@@ -27,7 +27,8 @@ from torch_parity import assert_trees_equal  # noqa: E402
 
 from repro_torch.core import sketch as tsk  # noqa: E402
 from repro_torch.core import types as ttypes  # noqa: E402
-from repro_torch.interop import carry_from_numpy, workload_from_numpy  # noqa: E402
+from repro_torch.interop import (  # noqa: E402
+    carry_from_numpy, to_numpy, workload_from_numpy)
 from repro_torch.kvstore import client as tcl  # noqa: E402
 from repro_torch.kvstore import server as tsrv  # noqa: E402
 from repro_torch.kvstore import simulator as tsim  # noqa: E402
@@ -104,17 +105,117 @@ def test_rack_simulator_matches_jax():
     assert m_ref["hits"].sum() > 0 and m_ref["fwd"].sum() > 0
 
 
+def test_periodic_rack_simulator_matches_jax():
+    """The control-plane path: server tracking on, ``run`` with a period
+    of 8 windows for 3 periods, then ``hot_in_swap(16)`` and 2 more
+    periods, from one carry and the reference's draws.  Every carry leaf
+    (the trackers included), every metric, the active size and every
+    period's ``TracedUpdate`` must be equal."""
+    rack = dict(RACK, track_popularity=True)
+    rcfg = jsim.RackConfig(**rack)
+    wl_j = jwl.Workload(jwl.WorkloadConfig(**WORKLOAD))
+    wl_t = twl.Workload(twl.WorkloadConfig(**WORKLOAD), device="cpu")
+    cpu = torch.device("cpu")
+    period_s = 8 * rcfg.window_us * 1e-6
+    jkn.set_kernel_backend("ref")
+    try:
+        ref = jsim.RackSimulator(rcfg, wl_j)
+        draws = tcl.ReplayDraws(*jax_draws(rcfg.seed, ref.carry.offered,
+                                           rcfg.client_batch, 56), cpu)
+        port = tsim.RackSimulator(tsim.RackConfig(**rack), wl_t,
+                                  device="cpu", draws=draws)
+        port.carry = carry_from_numpy(jax.tree.map(np.asarray, ref.carry),
+                                      draws, cpu)
+        keys = wl_j.hottest_keys(16)
+        ref.preload(keys)
+        port.preload(keys)
+        updates = {"ref": [], "port": []}
+        record = lambda name: (lambda sim, w: updates[name].append(
+            sim._last_update))
+        results = []
+        for n_periods, churn in ((3, False), (2, True)):
+            if churn:
+                wl_j.hot_in_swap(16)
+                wl_t.hot_in_swap(16)
+            results.append((
+                ref.run(n_periods * period_s, controller_period_s=period_s,
+                        on_period=record("ref")),
+                port.run(n_periods * period_s, controller_period_s=period_s,
+                         on_period=record("port"))))
+            assert_trees_equal(port.carry, ref.carry,
+                               f"after {len(updates['ref'])} periods",
+                               tolerate=TOL)
+            assert port.controller.active_size == ref.controller.active_size
+    finally:
+        jkn.set_kernel_backend(None)
+    assert torch.equal(wl_t.perm, torch.from_numpy(np.array(wl_j.perm)))
+    for r_ref, r_port in results:
+        assert len(r_ref.traces["tx"]) in (24, 16)
+        for k, v in r_ref.traces.items():
+            assert r_port.traces[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(r_port.traces[k], v,
+                                          err_msg=f"metric {k}")
+        assert r_port.info == r_ref.info
+    assert len(updates["port"]) == len(updates["ref"]) == 5
+    for i, (u_port, u_ref) in enumerate(zip(updates["port"],
+                                            updates["ref"])):
+        assert_trees_equal(u_port, u_ref, f"period {i} update")
+    # the controller must have acted: after the churn the new hot keys are
+    # uncached, so only the servers' reports can bring them in
+    n_ins = [int(u.n_insert.sum()) for u in updates["ref"]]
+    assert sum(n_ins[3:]) > 0, n_ins
+
+
 def test_unported_paths_raise():
+    """NetCache and NoCache are a later slice and raise, naming their
+    ROADMAP item; server tracking and the periodic controller run."""
     wl_t = twl.Workload(twl.WorkloadConfig(num_keys=100), device="cpu")
     for cfg in (tsim.RackConfig(scheme="netcache"),
-                tsim.RackConfig(scheme="nocache"),
-                tsim.RackConfig(track_popularity=True)):
+                tsim.RackConfig(scheme="nocache")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsim.RackSimulator(cfg, wl_t, device="cpu")
-    sim = tsim.RackSimulator(tsim.RackConfig(num_servers=4), wl_t,
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.run(0.001, controller_period_s=0.01)
+    small = dict(num_servers=4, cache_entries=8, client_batch=16,
+                 value_pad=16, fetch_lanes=8)
+    sim = tsim.RackSimulator(tsim.RackConfig(track_popularity=True, **small),
+                             wl_t, device="cpu")
+    sim.preload(wl_t.hottest_keys(8))
+    seen = []
+    res = sim.run(0.0012, controller_period_s=0.0004,
+                  on_period=lambda s, w: seen.append(w))
+    assert seen == [4, 8, 12] and len(res.traces["tx"]) == 12
+    assert sim._last_update.n_insert.shape == (1,)
+    assert int(sim.carry.servers.tracker.cms.counts.sum()) == 0  # reported
+    sim = tsim.RackSimulator(tsim.RackConfig(**small), wl_t, device="cpu")
+    res = sim.run(0.0012, controller_period_s=0.0004)
+    assert len(res.traces["tx"]) == 12 and res.info["active_size"] == 8
+
+
+def test_device_control_plane_matches_host_oracle():
+    """One period boundary two ways on one carry: the device form
+    (``controller_window_apply``, as ``run_periods`` does it) and the host
+    oracle (``_control_plane_update``: ``server_reports`` and
+    ``CacheController.update``) give the same switch, servers and fetch
+    batch."""
+    wl_t = twl.Workload(twl.WorkloadConfig(num_keys=2000, offered_rps=1e6),
+                        device="cpu")
+    cfg = tsim.RackConfig(num_servers=4, cache_entries=16, client_batch=64,
+                          value_pad=16, fetch_lanes=16, track_popularity=True)
+    sim = tsim.RackSimulator(cfg, wl_t, device="cpu")
+    sim.preload(wl_t.hottest_keys(8))
+    sim.run_windows(12)
+    wl_t.hot_in_swap(16)
+    sim.run_windows(12)
+    act = torch.tensor(sim.controller.active_size, dtype=torch.int32)
+    dev_carry, _, upd, _ = tsim.controller_window_apply(
+        cfg, sim.controller.cfg, wl_t.arrays, sim.carry, act)
+    sim._control_plane_update()
+    assert int(upd.n_insert) > 0
+    assert [(int(k), int(c)) for k, c in zip(
+        upd.fetch_kidx[:int(upd.n_insert)],
+        upd.fetch_cidx[:int(upd.n_insert)])] == sim._last_update.fetches
+    for name in ("policy", "servers", "fetch"):
+        assert_trees_equal(getattr(dev_carry, name),
+                           to_numpy(getattr(sim.carry, name)), name)
 
 
 def test_default_device_is_cuda():

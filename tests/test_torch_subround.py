@@ -105,6 +105,7 @@ def test_cuda_backend_refuses_cpu_tensors():
         kn.set_kernel_backend(None)
 
 
+@pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """On the card: the Hopper kernel equals the plain version, exactly."""
     if not torch.cuda.is_available():

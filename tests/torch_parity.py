@@ -4,7 +4,9 @@ The port's tensors go through ``repro_torch.interop.to_numpy`` (the one
 dtype map), then every leaf of the reference tree is compared exactly,
 dtype included; a failure names the leaf path, as
 ``test_parity_fuzz._assert_trees_equal`` does for the reference's own
-twins.
+twins.  Every NamedTuple of the port compares this way (the simulator's
+carry, the tracker, the controller's ``TracedUpdate``); leaves that are
+already numpy (a period's stacked updates) pass through unchanged.
 """
 from __future__ import annotations
 
@@ -37,6 +39,10 @@ def assert_trees_equal(port, ref, label: str, skip=("rng", "draws"),
     got = dict(tree_leaves_with_path(to_numpy(port)))
     want = tree_leaves_with_path(ref)
     assert want, f"{label}: empty reference tree"
+    named = lambda paths: {p for p in paths
+                           if p.rsplit(".", 1)[-1] not in skip}
+    extra = named(got) - named(p for p, _ in want)
+    assert not extra, f"{label}: port leaves the reference lacks: {extra}"
     for path, w in want:
         if path.rsplit(".", 1)[-1] in skip:
             continue
