@@ -5,13 +5,14 @@
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. device: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: ``nvcc`` compiles the three kernels for sm_90a, one process per
-   source, all started together (``kernels/{subround,cms,hot_gather}/
-   kernel.cu``), and prints ``ptxas``'s report for each;
-3. each kernel against its plain version on the card, exactly, over fuzz
-   cases and the shapes of the paper's rack, then ms per launch (CUDA
-   events over 1,000 launches) for the kernel, its wrapper, the plain
-   version and an empty kernel launched the same way (the launch floor);
+2. build: ``nvcc`` compiles the four kernels for sm_90a, one process per
+   source, all started together (``kernels/{subround,cms,hot_gather,
+   orbit_match}/kernel.cu``), and prints ``ptxas``'s report for each;
+3. each kernel against its plain version on the card over fuzz cases and
+   the shapes of the paper's rack (exactly; bf16 ``hot_gather`` rows
+   within rtol = atol = 2e-2), then ms per launch (CUDA events over 1,000
+   launches) for the kernel, its wrapper, the plain version and an empty
+   kernel launched the same way (the launch floor);
 4. main path at the paper's scale (``configs/orbitcache_paper.py``: 10M
    keys, C = 128, 32 servers, 4M rps offered): preload the 128 hottest
    keys, run 1,000 windows through ``RackSimulator.run``, check that every
@@ -24,7 +25,17 @@ Phases, each printed on its own line; any failure exits non-zero:
    phases 2 and 3, the cadence of Fig. 18.  Every window must launch 4
    subround kernels and 1 count-min kernel, every period 3 hot_gather
    kernels, and no plain version may run; the replay under the plain
-   versions must equal it in every carry leaf, metric and period update.
+   versions must equal it in every carry leaf, metric and period update;
+6. ``orbit_match``, which no simulator path calls, through its own entry
+   point ``kernels.orbit_match``: against its plain version over fuzz
+   cases and on the paper rack's table after the preload against one
+   window's live ingress, timed there, then one call per subround of that
+   window with the launches counted;
+7. the compared schemes on the paper rack: NoCache, and NetCache with the
+   10,000 hottest keys preloaded, 500 windows each (``serve_kv.py``'s
+   0.05 s); neither may launch a kernel or run a plain version.  Then 64
+   windows of each from one carry and one set of numpy-made draws, once on
+   the card and once on the CPU: every carry leaf and metric equal.
 
 The line before the last two is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback.
@@ -51,6 +62,8 @@ FUZZ_CASES = 200
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 SCALAR_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 CP_PHASES, CP_PHASE_S, CP_PERIOD_S, CP_SWAP = 3, 0.05, 0.01, 128
+SCHEME_S, SCHEME_CHECK_WINDOWS = 0.05, 64
+BF16_TOL = 2e-2               # tests/test_kernels.py's bf16 hot_gather bound
 
 
 def phase(name, **kv):
@@ -79,6 +92,30 @@ def bound(nbytes, ops):
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_profile(fn):
+    """Run ``fn`` under ``torch.profiler``: ``(device events, wall s)``.
+    Fails if the profiler saw no device event."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler saw no device events")
+    return events, wall
+
+
+def device_us(events, name=""):
+    """Device µs of the events whose key holds ``name``."""
+    return sum(getattr(e, "self_device_time_total", 0) for e in events
+               if name in e.key)
 
 
 def max_abs_err(got, want):
@@ -304,7 +341,8 @@ def hg_case(seed, b, c, d, dtype, distinct, dev):
     rows = (rng.integers(-1000, 1000, (c, d)).astype(np.int32)
             if dtype == torch.int32
             else rng.normal(size=(c, d)).astype(np.float32))
-    return [torch.from_numpy(a).to(dev) for a in (ids, hot, rows)]
+    ids, hot, rows = (torch.from_numpy(a).to(dev) for a in (ids, hot, rows))
+    return [ids, hot, rows.to(dtype)]
 
 
 def check_hot_gather(dev):
@@ -314,25 +352,34 @@ def check_hot_gather(dev):
     sizes = [(b, c, d) for b in (1, 128, 300) for c in (1, 128, 200)
              for d in (1, 3, 64)] + list(HG_CALLS)
     cases = [(sz, dt, dist) for sz in sizes
-             for dt, dist in ((torch.int32, False), (torch.float32, True))]
-    max_err = 0.0
+             for dt, dist in ((torch.int32, False), (torch.float32, True),
+                              (torch.bfloat16, True),
+                              (torch.bfloat16, False))]
+    max_err = {"exact": 0.0, "bf16": 0.0}
     for i, ((b, c, d), dt, dist) in enumerate(cases):
         args = hg_case(i, b, c, d, dt, dist, dev)
         got = hot_gather(*args)
         want = hot_gather_ref(*args)
         torch.cuda.synchronize()
         for name, g, w in zip(("out", "hit"), got, want):
-            max_err = max(max_err, max_abs_err(g, w))
-            if not torch.equal(g, w):
+            bf16 = g.dtype == torch.bfloat16
+            err = max_abs_err(g, w)
+            key = "bf16" if bf16 else "exact"
+            max_err[key] = max(max_err[key], err)
+            ok = (torch.allclose(g.float(), w.float(), rtol=BF16_TOL,
+                                 atol=BF16_TOL) if bf16
+                  else torch.equal(g, w))
+            if not ok:
                 raise AssertionError(f"hot_gather kernel != plain version at "
-                                     f"{name} (b={b} c={c} d={d} {dt})")
+                                     f"{name} (b={b} c={c} d={d} {dt}, "
+                                     f"max abs err {err})")
     return len(cases), max_err
 
 
 def time_hot_gather(dev):
     """ms per launch at the controller's three call shapes (int32 rows,
     repeated hot ids); the kernels line takes the largest.  For float32
-    rows, the kernel beside the library's two calls
+    and bf16 rows, the kernel beside the library's two calls
     ``(ids[:, None] == hot[None, :]).to(rows.dtype) @ rows``."""
     from repro_torch.kernels.hot_gather import kernel
     from repro_torch.kernels.hot_gather.ops import hot_gather
@@ -354,27 +401,174 @@ def time_hot_gather(dev):
         # per match and column
         matches = int((ids[:, None] == hot[None, :]).sum())
         nbytes = 4 * (b + c + c * d + b * d + b)
-        f_ids, f_hot, f_rows = hg_case(b + c, b, c, d, torch.float32, True,
-                                       dev)
-        kernel_f32_ms = timed(lambda: hot_gather(f_ids, f_hot, f_rows))
-        library_f32_ms = timed(lambda: (f_ids[:, None] == f_hot[None, :])
-                               .to(f_rows.dtype) @ f_rows)
+        by_type = {}
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            f_ids, f_hot, f_rows = hg_case(b + c, b, c, d, dt, True, dev)
+            by_type[f"wrapper_{tag}_ms"] = timed(
+                lambda: hot_gather(f_ids, f_hot, f_rows))
+            by_type[f"library_{tag}_two_calls_ms"] = timed(
+                lambda: (f_ids[:, None] == f_hot[None, :]).to(f_rows.dtype)
+                @ f_rows)
         calls.append(dict(shape=dict(b=b, c=c, d=d), ms=ms,
                           launch_floor_ms=floor, wrapper_ms=wrapper_ms,
-                          plain_ms=plain_ms, wrapper_f32_ms=kernel_f32_ms,
-                          library_f32_two_calls_ms=library_f32_ms,
+                          plain_ms=plain_ms, **by_type,
                           **bound(nbytes, b * c + matches * d)))
     return calls
 
 
 # --------------------------------------------------------------------------
+# orbit_match kernel
+# --------------------------------------------------------------------------
+# lanes and entries of the fuzz cases; None is one subround's ingress of
+# the paper's rack, read from its live carry
+OM_LANES = (1, 31, None, 4096)
+OM_ENTRIES = (1, 16, 128, 130, 1024)
+OM_FLAGS = np.array([-1, 0, 1, 2], np.int32)
+
+
+def om_case(seed, b, c, dup, mask, dev):
+    """(hkey, table, occupied, valid, pop_mask) on ``dev``: int32 hash
+    words, flags from {-1, 0, 1, 2} (true only where > 0), lanes that
+    mostly hit; ``dup`` copies a quarter of the entries onto others (some
+    copies unoccupied); ``mask`` is "none", "sparse" or "zero"."""
+    from repro_torch.core.hashing import hash128_u32_np
+    rng = np.random.default_rng(seed)
+    universe = 2 * c + 4
+    keys = rng.choice(universe, c, replace=False).astype(np.int32)
+    if dup:
+        n = max(1, c // 4)
+        keys[rng.integers(0, c, n)] = keys[rng.integers(0, c, n)]
+    occ, valid = rng.choice(OM_FLAGS, c), rng.choice(OM_FLAGS, c)
+    q = np.where(rng.random(b) < 0.7, keys[rng.integers(0, c, b)],
+                 rng.integers(0, universe, b)).astype(np.int32)
+    pop_mask = {"none": None, "zero": np.zeros(b, np.int32),
+                "sparse": np.where(rng.random(b) < 0.1,
+                                   rng.choice(OM_FLAGS, b), 0)}[mask]
+    hk = lambda k: hash128_u32_np(k).view(np.int32)
+    return [None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a, np.int32)).to(dev)
+            for a in (hk(q), hk(keys), occ, valid, pop_mask)]
+
+
+def live_match_inputs(sim):
+    """The rack's table ``(hkeys, occupied, valid)`` and one window's
+    ingress, ``[(hkey, pop_mask)]`` per subround (the mask is the valid
+    R-REQ lanes, which the switch counts), drawn from the live carry; the
+    draw source is rewound, so the run that follows sees the same draws."""
+    from repro_torch.core.types import OP_R_REQ
+    from repro_torch.kvstore.simulator import generate_ingress
+
+    state = sim.carry.draws.get_state()
+    _, _, sub = generate_ingress(sim.cfg, sim.client_cfg, sim.wl.arrays,
+                                 sim.carry)
+    sim.carry.draws.set_state(state)
+    sw = sim.carry.policy
+    table = (sw.lookup.hkeys.clone(), sw.lookup.occupied.to(torch.int32),
+             sw.state.valid.to(torch.int32))
+    lanes = [(sub.hkey[r].contiguous(),
+              (sub.valid[r] & (sub.op[r] == OP_R_REQ)).to(torch.int32))
+             for r in range(sub.op.shape[0])]
+    return table, lanes
+
+
+def check_orbit_match(dev, live):
+    from repro_torch.kernels.orbit_match.ops import orbit_match
+    from repro_torch.kernels.orbit_match.ref import orbit_match_ref
+
+    table, lanes = live
+    b_live = lanes[0][0].shape[0]
+    cases = [(b_live if b is None else b, c, dup, mask)
+             for b in OM_LANES for c in OM_ENTRIES for dup in (False, True)
+             for mask in ("none", "sparse", "zero")]
+    inputs = [om_case(i, b, c, dup, mask, dev)
+              for i, (b, c, dup, mask) in enumerate(cases)]
+    cases += [("live", r) for r in range(len(lanes))]
+    inputs += [[hk, *table, m] for hk, m in lanes]
+    max_err = 0.0
+    for case, args in zip(cases, inputs):
+        got = orbit_match(*args)
+        want = orbit_match_ref(*args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("cidx", "hit", "valid_hit", "pop"), got, want):
+            max_err = max(max_err, max_abs_err(g, w))
+            if not torch.equal(g, w):
+                raise AssertionError(f"orbit_match kernel != plain version "
+                                     f"at {name} ({case})")
+    return len(cases), max_err
+
+
+def run_orbit_match(dev, live):
+    """The orbit_match phase (module docstring, phase 6).  Returns the
+    kernels-line numbers."""
+    from repro_torch import kernels as kn
+    from repro_torch.kernels.orbit_match import kernel
+    from repro_torch.kernels.orbit_match.ops import orbit_match
+    from repro_torch.kernels.orbit_match.ref import orbit_match_ref
+
+    n_cases, err = check_orbit_match(dev, live)
+    (thk, occ, val), lanes = live
+    hkey, mask = lanes[0]
+    b, c = hkey.shape[0], thk.shape[0]
+    outs = orbit_match(hkey, thk, occ, val, mask)
+    ptrs = [a.data_ptr() for a in (hkey, thk, occ, val, mask, *outs)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms = timed(lambda: kernel.launch(*ptrs, b, c, stream))
+    floor = timed(lambda: kernel.launch(*ptrs, b, c, stream, empty=True))
+    wrapper_ms = timed(lambda: orbit_match(hkey, thk, occ, val, mask))
+    plain_ms = timed(lambda: orbit_match_ref(hkey, thk, occ, val, mask))
+    # inputs once, outputs once; the operations the kernel's compare chain
+    # does on these inputs: an occupancy test per (lane, entry), then words
+    # compared until the first that differs, and an add per counted match
+    nbytes = 4 * (4 * b + 4 * c + 2 * c + b + 3 * b + c)
+    occupied = (occ > 0)[None, :]
+    same = (hkey[:, None, :] == thk[None, :, :]).to(torch.int32).cumprod(
+        dim=-1).bool()               # words 0..w all equal
+    n_ops = (b * c + b * int(occupied.sum())
+             + sum(int((same[..., w] & occupied).sum()) for w in range(3))
+             + int((same[..., 3] & occupied & (mask > 0)[:, None]).sum()))
+
+    # its own entry point, one call per subround of the window, counted
+    with counting_plain_versions() as plain_calls:
+        kn.reset_launch_counts()
+        results = [kn.orbit_match(hk, thk, occ, val, m) for hk, m in lanes]
+        torch.cuda.synchronize()
+        launches = dict(kn.LAUNCHES)
+        calls = dict(plain_calls)
+    want = dict.fromkeys(launches, 0) | {"orbit_match": len(lanes)}
+    if launches != want or any(calls.values()):
+        raise AssertionError(f"orbit_match entry point launched {launches}, "
+                             f"plain versions {calls}; want {want}")
+    for (hk, m), got in zip(lanes, results):
+        for g, w in zip(got, orbit_match_ref(hk, thk, occ, val, m)):
+            if not torch.equal(g, w):
+                raise AssertionError("orbit_match entry point != plain")
+    hits = sum(int(r[1].sum()) for r in results)
+    if not hits:
+        raise AssertionError("no lane of the live ingress hit the table")
+    rec = dict(ms=ms, launch_floor_ms=floor, wrapper_ms=wrapper_ms,
+               plain_ms=plain_ms, library_ms=None, **bound(nbytes, n_ops))
+    phase("orbit_match_vs_plain", cases=n_cases, equal=True,
+          max_abs_err=err, shape=dict(b=b, c=c), **rec,
+          entry_point=dict(calls=len(lanes), launches=launches,
+                           lanes=sum(hk.shape[0] for hk, _ in lanes),
+                           hits=hits,
+                           valid_hits=sum(int(r[2].sum()) for r in results),
+                           pop=sum(int(r[3].sum()) for r in results)))
+    return dict(rec, launches=launches["orbit_match"], max_abs_err=err)
+
+
+# --------------------------------------------------------------------------
 # main path
 # --------------------------------------------------------------------------
-def clone_tree(x):
+def clone_tree(x, device=None):
+    """A copy of a tree of tensors (on ``device`` if given); a NamedTuple
+    keeps its class, a plain tuple (NoCache's policy ``()``) stays one."""
     if isinstance(x, torch.Tensor):
-        return x.clone()
+        return x.clone() if device is None else x.to(device, copy=True)
     if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(clone_tree(v) for v in x))
+        return type(x)(*(clone_tree(v, device) for v in x))
+    if isinstance(x, tuple):
+        return tuple(clone_tree(v, device) for v in x)
     return x
 
 
@@ -384,12 +578,14 @@ def counting_plain_versions():
     look them up on their modules at each call)."""
     from repro_torch.kernels.cms import ref as cms_ref
     from repro_torch.kernels.hot_gather import ref as hg_ref
+    from repro_torch.kernels.orbit_match import ref as om_ref
     from repro_torch.kernels.subround import ref as sr_ref
 
     targets = {"subround": (sr_ref, "subround_ref"),
                "cms": (cms_ref, "cms_update_query_fast"),
                "cms_one_hot": (cms_ref, "cms_update_query_ref"),
-               "hot_gather": (hg_ref, "hot_gather_ref")}
+               "hot_gather": (hg_ref, "hot_gather_ref"),
+               "orbit_match": (om_ref, "orbit_match_ref")}
     calls = {k: 0 for k in targets}
     real = {k: getattr(m, f) for k, (m, f) in targets.items()}
 
@@ -427,6 +623,7 @@ def run_main_path(dev):
     sim.preload(wl.hottest_keys(RACK.cache_entries))
     start = clone_tree(sim.carry)
     gen_state = sim.carry.draws.get_state()
+    live = live_match_inputs(sim)
 
     seconds = WINDOWS * RACK.window_us * 1e-6
     with counting_plain_versions() as plain_calls:
@@ -488,24 +685,13 @@ def run_main_path(dev):
         sim.carry.draws.set_state(gen_state)
         kn.reset_launch_counts()
         prof_windows = 25
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            sim.run_windows(prof_windows)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        ka = prof.key_averages()
-        dev_events = [e for e in ka if getattr(e, "device_type", None)
-                      == torch.autograd.DeviceType.CUDA]
+        dev_events, prof_wall = device_profile(
+            lambda: sim.run_windows(prof_windows))
         sub = sum(e.count for e in dev_events if "subround_kernel" in e.key)
-        if not dev_events:
-            raise AssertionError("the profiler saw no device events")
         if sub != RACK.subrounds * prof_windows:
             raise AssertionError(f"profiler saw {sub} subround kernels in "
                                  f"{prof_windows} windows")
-        dev_us = sum(getattr(e, "self_device_time_total", 0)
-                     for e in dev_events)
+        dev_us = device_us(dev_events)
         busy_ms_per_window = dev_us / 1e3 / prof_windows
         # the device's idle share of the unprofiled main-path run, from the
         # device time per window the profiler saw; and of the profiled
@@ -518,7 +704,7 @@ def run_main_path(dev):
               profiled_wall_ms_per_window=prof_wall * 1e3 / prof_windows,
               device_idle_share=1 - busy_ms_per_window / (wall * 1e3 / n_win),
               device_idle_share_profiled=1 - dev_us / 1e6 / prof_wall)
-    return launches
+    return launches, live
 
 
 def run_control_plane(dev):
@@ -570,7 +756,8 @@ def run_control_plane(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kn.LAUNCHES)
-        if launches != want or len(updates) != n_periods:
+        if (launches != dict.fromkeys(launches, 0) | want
+                or len(updates) != n_periods):
             raise AssertionError(f"control plane launched {launches} in "
                                  f"{len(updates)} periods; want {want}")
         if any(plain_calls.values()):
@@ -637,27 +824,15 @@ def run_control_plane(dev):
         # what the profiler sees of one period of the kernel path
         rewind()
         kn.reset_launch_counts()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            sim.run_periods(1, period_w)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        dev_events = [e for e in prof.key_averages()
-                      if getattr(e, "device_type", None)
-                      == torch.autograd.DeviceType.CUDA]
+        dev_events, prof_wall = device_profile(
+            lambda: sim.run_periods(1, period_w))
         by_kernel = {k: sum(e.count for e in dev_events if f"{k}_kernel"
                             in e.key) for k in want}
-        us_by_kernel = {k: sum(getattr(e, "self_device_time_total", 0)
-                               for e in dev_events if f"{k}_kernel" in e.key)
-                        for k in want}
+        us_by_kernel = {k: device_us(dev_events, f"{k}_kernel") for k in want}
         if by_kernel != {"subround": rack.subrounds * period_w,
                          "cms": period_w, "hot_gather": 3}:
             raise AssertionError(f"profiler saw {by_kernel} in one period")
-        dev_us = sum(getattr(e, "self_device_time_total", 0)
-                     for e in dev_events)
-        busy = dev_us / 1e3 / period_w
+        busy = device_us(dev_events) / 1e3 / period_w
         phase("control_plane_profile", windows=period_w,
               kernels_seen=by_kernel, kernel_device_us=us_by_kernel,
               device_kernels=sum(e.count for e in dev_events),
@@ -668,10 +843,107 @@ def run_control_plane(dev):
     return launches
 
 
+def run_schemes(dev):
+    """NoCache and NetCache on the paper's rack (module docstring, phase
+    7)."""
+    from repro_torch import kernels as kn
+    from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
+    from repro_torch.interop import to_numpy
+    from repro_torch.kvstore.client import ReplayDraws
+    from repro_torch.kvstore.simulator import RackSimulator
+    from repro_torch.kvstore.workload import Workload
+
+    wl = Workload(WORKLOAD, device=dev)
+    wl_cpu = Workload(WORKLOAD, device="cpu")
+    for i, scheme in enumerate(("nocache", "netcache")):
+        rack = dataclasses.replace(RACK, scheme=scheme)
+        sim = RackSimulator(rack, wl)
+        if scheme == "netcache":
+            sim.preload(wl.hottest_keys(rack.netcache_entries))
+        n_win = int(round(SCHEME_S / (rack.window_us * 1e-6)))
+        with counting_plain_versions() as plain_calls:
+            kn.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sim.run(SCHEME_S, chunk_windows=n_win)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
+        if any(launches.values()) or any(calls.values()):
+            raise AssertionError(f"{scheme} launched {launches} and ran "
+                                 f"plain versions {calls}")
+        rx_sw = res.traces["rx_switch"].astype(np.int64).sum()
+        rx_srv = res.traces["rx_server"].astype(np.int64).sum()
+        hits = int(res.traces["hits"].astype(np.int64).sum())
+        installed = getattr(sim, "_installed", None)
+        if len(res.traces["tx"]) != n_win or not res.throughput_rps() > 0:
+            raise AssertionError(f"{scheme}: {len(res.traces['tx'])} "
+                                 f"windows, nothing served")
+        if scheme == "nocache" and rx_sw != 0:
+            raise AssertionError("nocache: the switch answered requests")
+        if scheme == "netcache" and not (hits > 0 and installed > 0):
+            raise AssertionError(f"netcache: {installed} installed, {hits} "
+                                 f"hits")
+        phase("scheme", scheme=scheme, windows=n_win, seconds=round(wall, 3),
+              windows_per_s=round(n_win / wall, 1),
+              throughput_rps=res.throughput_rps(),
+              offered_rps=res.offered_rps(),
+              switch_share=float(rx_sw / max(rx_sw + rx_srv, 1)),
+              balancing_efficiency=res.balancing_efficiency(),
+              p50_us=res.latency_percentile(0.5),
+              p99_us=res.latency_percentile(0.99), hits=hits,
+              installed=installed, launches=launches, plain_calls=calls)
+        prof_windows = 25
+        dev_events, prof_wall = device_profile(
+            lambda: sim.run_windows(prof_windows))
+        busy = device_us(dev_events) / 1e3 / prof_windows
+        phase("scheme_profile", scheme=scheme, windows=prof_windows,
+              device_kernels=sum(e.count for e in dev_events),
+              device_busy_ms_per_window=busy,
+              wall_ms_per_window=wall * 1e3 / n_win,
+              profiled_wall_ms_per_window=prof_wall * 1e3 / prof_windows,
+              device_idle_share=1 - busy / (wall * 1e3 / n_win))
+
+        # the card against the CPU: one carry, one set of numpy-made draws,
+        # writes on so that invalidations and installs run
+        start = sim.carry._replace(write_ratio=torch.tensor(
+            0.1, dtype=torch.float32, device=dev))
+        rng = np.random.default_rng(100 + i)
+        w_n, b = SCHEME_CHECK_WINDOWS, rack.client_batch
+        draws = (rng.poisson(float(start.offered), w_n),
+                 rng.random((w_n, b), dtype=np.float32),
+                 rng.random((w_n, b), dtype=np.float32))
+        sim.carry = clone_tree(start)._replace(
+            draws=ReplayDraws(*draws, dev))
+        m_dev = sim.run_windows(w_n)
+        cpu = RackSimulator(rack, wl_cpu, device="cpu",
+                            draws=ReplayDraws(*draws, "cpu"))
+        cpu.carry = clone_tree(start, "cpu")._replace(draws=cpu.carry.draws)
+        t0 = time.perf_counter()
+        m_cpu = cpu.run_windows(w_n)
+        cpu_s = time.perf_counter() - t0
+        for k, v in m_dev.items():
+            if v.dtype != m_cpu[k].dtype or not np.array_equal(v, m_cpu[k]):
+                raise AssertionError(f"{scheme}: card and CPU differ in "
+                                     f"metric {k}")
+        n_leaves = compare_trees(to_numpy(sim.carry), to_numpy(cpu.carry),
+                                 f"{scheme} carry")
+        phase("scheme_card_vs_cpu", scheme=scheme, windows=w_n,
+              write_ratio=0.1, equal_leaves=n_leaves,
+              equal_metrics=len(m_dev), cpu_seconds=round(cpu_s, 3),
+              hits=int(m_dev["hits"].astype(np.int64).sum()),
+              forwarded=int(m_dev["fwd"].astype(np.int64).sum()))
+
+
 def compare_trees(a, b, path):
     if isinstance(a, tuple) and hasattr(a, "_fields"):
         return sum(compare_trees(x, y, f"{path}.{n}")
                    for n, x, y in zip(a._fields, a, b))
+    if isinstance(a, tuple):
+        if not isinstance(b, tuple) or len(a) != len(b):
+            raise AssertionError(f"replay differs in structure at {path}")
+        return sum(compare_trees(x, y, f"{path}[{i}]")
+                   for i, (x, y) in enumerate(zip(a, b)))
     if isinstance(a, np.ndarray):
         if a.dtype != b.dtype or not np.array_equal(a, b):
             raise AssertionError(f"replay differs at {path}")
@@ -686,6 +958,7 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.cms import kernel as cms_kernel
     from repro_torch.kernels.hot_gather import kernel as hg_kernel
+    from repro_torch.kernels.orbit_match import kernel as om_kernel
     from repro_torch.kernels.subround import kernel as sr_kernel
 
     dev = torch.device("cuda", 0)
@@ -697,7 +970,7 @@ def main():
     phase("device", nvidia_smi=smi, torch_device=name,
           torch=torch.__version__, cuda=torch.version.cuda)
 
-    libs = [sr_kernel.LIB, cms_kernel.LIB, hg_kernel.LIB]
+    libs = [sr_kernel.LIB, cms_kernel.LIB, hg_kernel.LIB, om_kernel.LIB]
     t0 = time.perf_counter()
     built = _build.build_all(libs, verbose=True)
     for kl in libs:
@@ -719,10 +992,13 @@ def main():
     n_cases, hg_err = check_hot_gather(dev)
     hg_calls = time_hot_gather(dev)
     phase("hot_gather_vs_plain", cases=n_cases, equal=True,
-          max_abs_err=hg_err, calls=hg_calls)
+          max_abs_err=hg_err["exact"], bf16_max_abs_err=hg_err["bf16"],
+          bf16_tolerance=dict(rtol=BF16_TOL, atol=BF16_TOL), calls=hg_calls)
 
-    main_launches = run_main_path(dev)
+    main_launches, live = run_main_path(dev)
+    om = run_orbit_match(dev, live)
     cp_launches = run_control_plane(dev)
+    run_schemes(dev)
 
     def launches(k):
         return dict(launches=(k == "subround") * main_launches
@@ -748,9 +1024,18 @@ def main():
         dict(name="hot_gather", route="cuda",
              source="src/repro_torch/kernels/hot_gather/kernel.cu",
              replaces="src/repro/kernels/hot_gather/kernel.py:22",
-             **launches("hot_gather"), max_abs_err=hg_err, ms=hg["ms"],
+             **launches("hot_gather"),
+             max_abs_err=max(hg_err.values()), ms=hg["ms"],
              plain_ms=hg["plain_ms"], bound_ms=hg["bound_ms"],
              bound_by=hg["bound_by"], library_ms=None),
+        dict(name="orbit_match", route="cuda",
+             source="src/repro_torch/kernels/orbit_match/kernel.cu",
+             replaces="src/repro/kernels/orbit_match/kernel.py:25",
+             launches=om["launches"],
+             launches_by_path=dict(orbit_match_entry_point=om["launches"]),
+             max_abs_err=om["max_abs_err"], ms=om["ms"],
+             plain_ms=om["plain_ms"], bound_ms=om["bound_ms"],
+             bound_by=om["bound_by"], library_ms=None),
     ]
     print(json.dumps({"kernels": record}))
     print(smi)

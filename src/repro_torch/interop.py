@@ -14,7 +14,8 @@ bool / uint8
 =====================  =========================  ==========================
 
 NamedTuples map by class name and field name, so a reference tree becomes
-the port's tree of the same shape.  The reference ``SimCarry.rng`` has no
+the port's tree of the same shape; a plain tuple (NoCache's empty policy
+``()``) maps item by item.  The reference ``SimCarry.rng`` has no
 counterpart: the port carries a draw source (``SimCarry.draws``) instead.
 """
 from __future__ import annotations
@@ -31,11 +32,12 @@ def _is_namedtuple(x) -> bool:
 
 
 def _port_classes() -> dict[str, type]:
+    from repro_torch.baselines import netcache
     from repro_torch.core import controller, orbit, pipeline, sketch, types
     from repro_torch.kernels.subround import ops
     from repro_torch.kvstore import client, server, simulator, workload
     mods = (types, pipeline, orbit, sketch, controller, ops, client, server,
-            simulator, workload)
+            simulator, workload, netcache)
     return {name: obj for m in mods for name, obj in vars(m).items()
             if isinstance(obj, type) and issubclass(obj, tuple)
             and hasattr(obj, "_fields")}
@@ -57,6 +59,8 @@ def to_numpy(x, name: str | None = None):
         return a
     if _is_namedtuple(x):
         return type(x)(*(to_numpy(getattr(x, f), f) for f in x._fields))
+    if isinstance(x, tuple):
+        return tuple(to_numpy(v, name) for v in x)
     return x
 
 
@@ -66,6 +70,8 @@ def from_numpy(x, device, name: str | None = None):
         cls = _port_classes()[type(x).__name__]
         return cls(**{f: from_numpy(getattr(x, f), device, f)
                       for f in cls._fields})
+    if isinstance(x, tuple):
+        return tuple(from_numpy(v, device, name) for v in x)
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.view(np.int32) if name in HKEY_FIELDS else a.astype(np.int64)

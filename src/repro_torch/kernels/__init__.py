@@ -27,13 +27,15 @@ import torch
 # the dispatcher functions shadow the subpackage attributes for good.
 from . import cms as _cms_pkg  # noqa: F401, E402
 from . import hot_gather as _hot_gather_pkg  # noqa: F401, E402
+from . import orbit_match as _orbit_match_pkg  # noqa: F401, E402
 from . import subround as _subround_pkg  # noqa: F401, E402
 
 KERNEL_BACKENDS = ("cuda", "ref")
 _ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
 _forced: str | None = None
 
-LAUNCHES: dict[str, int] = {"subround": 0, "cms": 0, "hot_gather": 0}
+LAUNCHES: dict[str, int] = {"subround": 0, "cms": 0, "hot_gather": 0,
+                            "orbit_match": 0}
 
 
 def reset_launch_counts() -> None:
@@ -64,6 +66,26 @@ def kernel_backend(device: torch.device) -> str:
         raise ValueError(f"kernel backend 'cuda' needs CUDA tensors; the "
                          f"data lies on {device}")
     return be
+
+
+def orbit_match(hkey, table_hkeys, occupied, valid, pop_mask=None,
+                block_b: int = 256):
+    """Fused match-action lookup: ``(cidx [B], hit [B], valid_hit [B],
+    pop [C])``, int32.
+
+    128-bit exact match of ``hkey`` (int32[B, 4] bit patterns) against the
+    occupied table entries (the first match wins), the validity filter, and
+    per-entry popularity over the lanes with ``pop_mask > 0``.
+    ``block_b`` is the reference's lane tile, kept for its signature: no
+    result depends on it.
+    """
+    from .orbit_match import ops
+    from .orbit_match import ref as om_ref
+
+    if kernel_backend(hkey.device) == "ref":
+        return om_ref.orbit_match_ref(hkey, table_hkeys, occupied, valid,
+                                      pop_mask)
+    return ops.orbit_match(hkey, table_hkeys, occupied, valid, pop_mask)
 
 
 def subround(

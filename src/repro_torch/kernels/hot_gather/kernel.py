@@ -18,7 +18,7 @@ LIB = KernelLibrary("hot_gather", Path(__file__).with_name("kernel.cu"),
                     {"hot_gather_launch": _ARGS,
                      "hot_gather_empty_launch": _ARGS})
 # row types the kernel takes, by the code kernel.cu switches on
-DTYPES = {torch.int32: 0, torch.float32: 1}
+DTYPES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def launch(ids: int, hot: int, rows: int, out: int, hit: int, b: int,

@@ -1,9 +1,10 @@
 """Wrapper for the hot_gather kernel.
 
-On CUDA tensors it launches the Hopper kernel (``kernel.cu``) for int32
-and float32 rows; on CPU tensors it runs the plain version
-(``ref.hot_gather_ref``).  The reference pads ids, hot ids and rows to its
-TPU tiles; the kernel takes any B, C and D, so nothing is padded.
+On CUDA tensors it launches the Hopper kernel (``kernel.cu``) for int32,
+float32 and bf16 rows (bf16 sums in float32, rounded once); on CPU tensors
+it runs the plain version (``ref.hot_gather_ref``).  The reference pads
+ids, hot ids and rows to its TPU tiles; the kernel takes any B, C and D,
+so nothing is padded.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ def hot_gather(ids, hot_ids, rows):
     if d < 1:
         raise ValueError("hot_gather: the kernel needs rows of width >= 1")
     if rows.dtype not in kernel.DTYPES:
-        raise ValueError(f"hot_gather: the kernel takes int32 or float32 "
-                         f"rows, not {rows.dtype}")
+        raise ValueError(f"hot_gather: the kernel takes int32, float32 or "
+                         f"bf16 rows, not {rows.dtype}")
     for name, a, dt, shp in (("ids", ids, I32, (b,)),
                              ("hot_ids", hot_ids, I32, (c,)),
                              ("rows", rows, rows.dtype, (c, d))):

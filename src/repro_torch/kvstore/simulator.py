@@ -1,5 +1,5 @@
-"""Discrete-time rack simulator, OrbitCache scheme
-(port of ``repro.kvstore.simulator``).
+"""Discrete-time rack simulator (port of ``repro.kvstore.simulator``):
+OrbitCache, NetCache and NoCache.
 
 Time advances in windows (default 100 µs).  Each window the clients draw
 an open-loop Poisson batch, the switch runs the fused pipeline over the
@@ -13,8 +13,8 @@ device until the caller reads the metrics.  With a controller period, a
 chunk is whole periods: ``period_w`` windows, then one device-side cache
 update (:func:`controller_window_apply`), and the host reads only the
 metrics, the updates and ``active_size`` at the end of the chunk.  The
-``netcache`` and ``nocache`` schemes are a later slice and raise
-``NotImplementedError``.
+``netcache`` and ``nocache`` switch passes are a few element-wise ops per
+subround and launch no kernel.
 """
 from __future__ import annotations
 
@@ -24,6 +24,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.baselines import (
+    init_netcache, netcache_install, netcache_step, nocache_step,
+)
 from repro_torch.core import pipeline
 from repro_torch.core.controller import (
     CacheController, ControllerConfig, TracedUpdate, controller_step,
@@ -31,7 +34,7 @@ from repro_torch.core.controller import (
 from repro_torch.core.hashing import hash128_u32, server_of_key
 from repro_torch.core.types import (
     OP_F_REQ, OP_NONE, ROUTE_CLIENT, ROUTE_SERVER, PacketBatch, empty_batch,
-    init_switch_state, resolve_device,
+    init_switch_state, resolve_device, sat_add,
 )
 from repro_torch.interop import to_numpy
 
@@ -48,7 +51,7 @@ I32, F32 = torch.int32, torch.float32
 
 @dataclass(frozen=True)
 class RackConfig:
-    scheme: str = "orbitcache"          # orbitcache (netcache | nocache: later)
+    scheme: str = "orbitcache"          # orbitcache | netcache | nocache
     window_us: float = 100.0
     subrounds: int = 4
     max_serves: int = 8
@@ -86,7 +89,7 @@ class WindowMetrics(NamedTuple):
 
 
 class SimCarry(NamedTuple):
-    policy: Any                 # SwitchState
+    policy: Any                 # SwitchState | NetCacheState | () for nocache
     servers: ServerState
     clients: cl.ClientState
     pending: PacketBatch        # server replies awaiting the switch, [R, Lp]
@@ -95,10 +98,6 @@ class SimCarry(NamedTuple):
     now: torch.Tensor           # float32 µs
     offered: torch.Tensor       # float32 mean requests per window
     write_ratio: torch.Tensor   # float32
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
 
 def make_server_config(cfg: RackConfig) -> ServerConfig:
@@ -133,8 +132,11 @@ def init_policy(cfg: RackConfig, device):
     if cfg.scheme == "orbitcache":
         return init_switch_state(cfg.cache_entries, cfg.queue_size,
                                  cfg.value_pad, cfg.max_frags, device)
-    if cfg.scheme in ("netcache", "nocache"):
-        raise _not_ported(f"the {cfg.scheme} scheme", "Queue 1 item 5")
+    if cfg.scheme == "netcache":
+        return init_netcache(cfg.netcache_table, cfg.netcache_value_limit,
+                             device)
+    if cfg.scheme == "nocache":
+        return ()
     raise ValueError(f"unknown scheme {cfg.scheme!r}")
 
 
@@ -269,35 +271,68 @@ def process_window(cfg: RackConfig, server_cfg: ServerConfig,
                    ) -> tuple[SimCarry, WindowMetrics]:
     """Run one window over the subround-major ingress ``sub``."""
     c = cfg
-    if c.scheme != "orbitcache":
-        raise _not_ported(f"the {c.scheme} scheme", "Queue 1 item 5")
     dev = sub.op.device
     f32 = lambda v: torch.tensor(v, dtype=F32, device=dev)
     pad_to = sub.op.shape[0] * sub.op.shape[1]
     window = f32(c.window_us)
-
-    policy, outs, intervals = pipeline.window_pipeline(
-        carry.policy, sub, recirc_gbps=c.recirc_gbps, window_us=c.window_us,
-        subrounds=c.subrounds, max_serves=c.max_serves, key_size=key_size)
-    grids, stats = outs.grid, outs.stats
-    # serve time = now + (r + 0.5) * window / R + (order + 1) * interval,
-    # with window / R folded as window * (1 / R), as XLA compiles the
-    # reference (exact for R a power of two)
-    r_idx = torch.arange(c.subrounds, dtype=F32, device=dev)[:, None, None]
-    k_sub = np.float32(c.window_us) * (np.float32(1.0)
-                                       / np.float32(c.subrounds))
-    serve_time = ((carry.now + (r_idx + f32(0.5)) * f32(k_sub))
-                  + (grids.order.to(F32) + f32(1.0))
-                  * intervals[:, None, None])
-    j = c.max_serves
-    clients = cl.account_switch_served(
-        clients, client_cfg, grids.served.reshape(-1, j),
-        grids.req_kidx.reshape(-1, j), grids.ts.reshape(-1, j),
-        grids.kidx.reshape(-1), serve_time.reshape(-1, j))
     isum = lambda x: torch.sum(x, dtype=I32)
+    zero = lambda: torch.zeros((), dtype=I32, device=dev)
+    switch_reply = None       # lanes the switch answered itself (NetCache)
 
-    route_flat = outs.route.reshape(-1)
-    flag_flat = outs.flag.reshape(-1)
+    if c.scheme == "orbitcache":
+        policy, outs, intervals = pipeline.window_pipeline(
+            carry.policy, sub, recirc_gbps=c.recirc_gbps,
+            window_us=c.window_us, subrounds=c.subrounds,
+            max_serves=c.max_serves, key_size=key_size)
+        routes, flags, grids, stats = outs.route, outs.flag, outs.grid, \
+            outs.stats
+        # serve time = now + (r + 0.5) * window / R + (order + 1) * interval,
+        # with window / R folded as window * (1 / R), as XLA compiles the
+        # reference (exact for R a power of two)
+        r_idx = torch.arange(c.subrounds, dtype=F32, device=dev)[:, None, None]
+        k_sub = np.float32(c.window_us) * (np.float32(1.0)
+                                           / np.float32(c.subrounds))
+        serve_time = ((carry.now + (r_idx + f32(0.5)) * f32(k_sub))
+                      + (grids.order.to(F32) + f32(1.0))
+                      * intervals[:, None, None])
+        j = c.max_serves
+        clients = cl.account_switch_served(
+            clients, client_cfg, grids.served.reshape(-1, j),
+            grids.req_kidx.reshape(-1, j), grids.ts.reshape(-1, j),
+            grids.kidx.reshape(-1), serve_time.reshape(-1, j))
+        hits, installs = isum(stats.n_hit), isum(stats.n_install)
+        overflow = isum(stats.n_overflow) + isum(stats.n_invalid_fwd)
+        crn, rx_sw = isum(stats.n_crn), isum(stats.n_served)
+    elif c.scheme == "netcache":
+        policy, ys = carry.policy, []
+        for r in range(c.subrounds):          # the reference's lax.scan
+            policy, *y = netcache_step(policy,
+                                       PacketBatch(*(a[r] for a in sub)))
+            ys.append(y)
+        routes, flags, sreps, n_hits = (torch.stack(x) for x in zip(*ys))
+        switch_reply = sreps.reshape(-1)
+        hits = isum(n_hits)
+        overflow, installs, crn = zero(), zero(), zero()
+        # every switch-served lane takes the switch pipeline's latency
+        lat = (torch.full((pad_to,), 1.0, dtype=F32, device=dev)
+               + f32(client_cfg.base_rtt_us))
+        bucket = torch.where(switch_reply, cl.lat_bucket(lat), cl.LAT_BUCKETS)
+        rx_sw = isum(switch_reply)
+        clients = clients._replace(
+            hist_switch=sat_add(clients.hist_switch,
+                                cl._bucket_counts(bucket)),
+            rx_switch=sat_add(clients.rx_switch, rx_sw))
+    else:  # nocache
+        policy, ys = carry.policy, []
+        for r in range(c.subrounds):
+            policy, *y = nocache_step(policy,
+                                      PacketBatch(*(a[r] for a in sub)))
+            ys.append(y)
+        routes, flags = (torch.stack(x) for x in zip(*ys))
+        hits, overflow, installs, crn, rx_sw = (zero() for _ in range(5))
+
+    route_flat = routes.reshape(-1)
+    flag_flat = flags.reshape(-1)
     ing_flat = PacketBatch(*(a.reshape((pad_to,) + a.shape[2:]) for a in sub))
 
     to_server = (route_flat == ROUTE_SERVER) & ing_flat.valid
@@ -305,6 +340,8 @@ def process_window(cfg: RackConfig, server_cfg: ServerConfig,
                                 to_server, flag_flat, carry.now)
 
     to_client = (route_flat == ROUTE_CLIENT) & ing_flat.valid
+    if switch_reply is not None:
+        to_client = to_client & ~switch_reply
     rx_srv_before = clients.rx_server
     clients = cl.account_server_replies(clients, client_cfg, ing_flat,
                                         to_client, carry.now + window)
@@ -318,12 +355,11 @@ def process_window(cfg: RackConfig, server_cfg: ServerConfig,
 
     metrics = WindowMetrics(
         tx=isum(reqs.valid & (reqs.op != OP_NONE)),
-        rx_switch=isum(stats.n_served), rx_server=rx_srv,
+        rx_switch=rx_sw, rx_server=rx_srv,
         served=sout.served_now, dropped=sout.dropped_now,
-        backlog=sout.backlog, hits=isum(stats.n_hit),
-        overflow=isum(stats.n_overflow) + isum(stats.n_invalid_fwd),
-        installs=isum(stats.n_install), crn=isum(stats.n_crn),
-        mismatches=clients.mismatches, fwd=isum(to_server),
+        backlog=sout.backlog, hits=hits, overflow=overflow,
+        installs=installs, crn=crn, mismatches=clients.mismatches,
+        fwd=isum(to_server),
     )
     new_carry = SimCarry(
         policy=policy, servers=servers, clients=clients,
@@ -456,7 +492,7 @@ class SimResult:
 
 
 class RackSimulator:
-    """One storage rack under the OrbitCache switch.
+    """One storage rack under a switch scheme (``cfg.scheme``).
 
     ``device`` defaults to the CUDA card; ``draws`` defaults to a
     :class:`~repro_torch.kvstore.client.TorchDraws` seeded from
@@ -499,15 +535,25 @@ class RackSimulator:
                 crn_n=old.crn_n))
 
     def preload(self, keys: np.ndarray) -> None:
-        """Install the hot set before measuring (paper §5.1), then let 16
-        windows carry the F-REQs to the servers and the F-REPs back."""
-        if self.cfg.scheme != "orbitcache":
-            raise _not_ported(f"the {self.cfg.scheme} scheme",
-                              "Queue 1 item 5")
-        sw, fetches = self.controller.preload(self.carry.policy, keys)
-        self.carry = self.carry._replace(policy=sw)
-        self.inject_fetches(fetches)
-        self.run_windows(16)
+        """Install the hot set before measuring (paper §5.1).
+
+        OrbitCache: the controller installs the keys, then 16 windows
+        carry the F-REQs to the servers and the F-REPs back.  NetCache:
+        the cacheable keys go straight into the table (``_installed``
+        counts them).  NoCache: nothing to do."""
+        c = self.cfg
+        if c.scheme == "orbitcache":
+            sw, fetches = self.controller.preload(self.carry.policy, keys)
+            self.carry = self.carry._replace(policy=sw)
+            self.inject_fetches(fetches)
+            self.run_windows(16)
+        elif c.scheme == "netcache":
+            st, n = netcache_install(
+                self.carry.policy, keys, self.wl.vlen_np[keys],
+                key_size=self.wl.cfg.key_size,
+                value_limit=c.netcache_value_limit)
+            self.carry = self.carry._replace(policy=st)
+            self._installed = n
 
     def inject_fetches(self, fetches: list[tuple[int, int]]) -> None:
         """Queue controller F-REQs for the next window (paper §3.8)."""

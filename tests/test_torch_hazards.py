@@ -90,7 +90,8 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py",
+              *sorted((ROOT / "examples").glob("*_torch.py"))]
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):

@@ -167,15 +167,26 @@ def test_periodic_rack_simulator_matches_jax():
 
 
 def test_unported_paths_raise():
-    """NetCache and NoCache are a later slice and raise, naming their
-    ROADMAP item; server tracking and the periodic controller run."""
+    """Every scheme of the reference now runs, and an unknown one raises.
+    NetCache and NoCache have no controller, so a periodic run takes plain
+    window chunks on the period cadence; server tracking and the periodic
+    controller run."""
     wl_t = twl.Workload(twl.WorkloadConfig(num_keys=100), device="cpu")
-    for cfg in (tsim.RackConfig(scheme="netcache"),
-                tsim.RackConfig(scheme="nocache")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsim.RackSimulator(cfg, wl_t, device="cpu")
+    with pytest.raises(ValueError, match="unknown scheme"):
+        tsim.RackSimulator(tsim.RackConfig(scheme="lru"), wl_t, device="cpu")
     small = dict(num_servers=4, cache_entries=8, client_batch=16,
                  value_pad=16, fetch_lanes=8)
+    for scheme in ("netcache", "nocache"):
+        sim = tsim.RackSimulator(
+            tsim.RackConfig(scheme=scheme, netcache_table=64,
+                            netcache_value_limit=16, **small),
+            wl_t, device="cpu")
+        sim.preload(wl_t.hottest_keys(8))
+        seen = []
+        res = sim.run(0.0012, controller_period_s=0.0004,
+                      on_period=lambda s, w: seen.append(w))
+        assert seen == [4, 8, 12] and len(res.traces["tx"]) == 12
+        assert res.info == dict(scheme=scheme, active_size=8)
     sim = tsim.RackSimulator(tsim.RackConfig(track_popularity=True, **small),
                              wl_t, device="cpu")
     sim.preload(wl_t.hottest_keys(8))
@@ -188,6 +199,68 @@ def test_unported_paths_raise():
     sim = tsim.RackSimulator(tsim.RackConfig(**small), wl_t, device="cpu")
     res = sim.run(0.0012, controller_period_s=0.0004)
     assert len(res.traces["tx"]) == 12 and res.info["active_size"] == 8
+
+
+SCHEME_WORKLOAD = dict(WORKLOAD, value_sizes=((16, 0.5), (48, 0.3),
+                                             (1024, 0.2)))
+
+
+@pytest.mark.parametrize("scheme", ["netcache", "nocache"])
+def test_scheme_rack_simulator_matches_jax(scheme):
+    """NetCache (a 64-slot table, a 32-byte value limit, so that probes
+    collide, the cut runs and large values are refused) and NoCache, with
+    writes on: after the preload and after 16 windows every carry leaf and
+    every metric equals the reference.  Every switch-served NetCache lane
+    has one latency, so ``hist_switch`` is exact; only ``hist_server``
+    keeps the log2 tolerance."""
+    rack = dict(RACK, scheme=scheme, netcache_table=64,
+                netcache_value_limit=32)
+    rcfg = jsim.RackConfig(**rack)
+    wl_j = jwl.Workload(jwl.WorkloadConfig(**SCHEME_WORKLOAD))
+    wl_t = twl.Workload(twl.WorkloadConfig(**SCHEME_WORKLOAD), device="cpu")
+    cpu = torch.device("cpu")
+    tol = {".hist_server": hist_close}
+    jkn.set_kernel_backend("ref")
+    try:
+        ref = jsim.RackSimulator(rcfg, wl_j)
+        draws = tcl.ReplayDraws(*jax_draws(rcfg.seed, ref.carry.offered,
+                                           rcfg.client_batch, 16), cpu)
+        port = tsim.RackSimulator(tsim.RackConfig(**rack), wl_t,
+                                  device="cpu", draws=draws)
+        port.carry = carry_from_numpy(jax.tree.map(np.asarray, ref.carry),
+                                      draws, cpu)
+        keys = wl_j.hottest_keys(40)
+        ref.preload(keys)
+        port.preload(keys)
+        assert getattr(port, "_installed", None) == getattr(
+            ref, "_installed", None)
+        assert_trees_equal(port.carry, ref.carry, "after preload",
+                           tolerate=tol)
+        m_ref = ref.run_windows(16)
+        m_port = port.run_windows(16)
+    finally:
+        jkn.set_kernel_backend(None)
+    for k, v in m_ref.items():
+        assert m_port[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(m_port[k], v, err_msg=f"metric {k}")
+    assert_trees_equal(port.carry, ref.carry, "after 16 windows",
+                       tolerate=tol)
+    assert m_ref["fwd"].sum() > 0 and m_ref["rx_server"].sum() > 0
+    if scheme == "netcache":
+        assert 0 < port._installed < 40
+        assert m_ref["hits"].sum() > 0
+        assert int(port.carry.policy.version.sum()) > 0     # writes landed
+    else:
+        assert port.carry.policy == () and m_ref["rx_switch"].sum() == 0
+
+
+def test_netcache_switch_latency_bucket_matches_jax():
+    """The one latency of a switch-served NetCache lane (1 µs of switch
+    pipeline plus the base round trip) falls in the reference's bucket."""
+    lat = np.float32(1.0) + np.float32(tcl.ClientConfig().base_rtt_us)
+    want = int(jsim.cl.lat_bucket(jnp.full((4,), 1.0, jnp.float32)
+                                  + jsim.cl.ClientConfig().base_rtt_us)[0])
+    assert int(tcl.lat_bucket(torch.tensor([lat]))[0]) == want
 
 
 def test_device_control_plane_matches_host_oracle():

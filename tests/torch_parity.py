@@ -5,7 +5,9 @@ dtype map), then every leaf of the reference tree is compared exactly,
 dtype included; a failure names the leaf path, as
 ``test_parity_fuzz._assert_trees_equal`` does for the reference's own
 twins.  Every NamedTuple of the port compares this way (the simulator's
-carry, the tracker, the controller's ``TracedUpdate``); leaves that are
+carry, the tracker, the controller's ``TracedUpdate``); a plain tuple
+(NoCache's empty policy ``()``) is walked item by item, so an empty one
+holds no leaf and the port must hold none there either; leaves that are
 already numpy (a period's stacked updates) pass through unchanged.
 """
 from __future__ import annotations
@@ -20,11 +22,16 @@ def _is_namedtuple(x) -> bool:
 
 
 def tree_leaves_with_path(tree, prefix=""):
-    """[(path, leaf)] of a NamedTuple tree, fields in order."""
+    """[(path, leaf)] of a tree of NamedTuples and tuples, in order."""
     if _is_namedtuple(tree):
         out = []
         for f in tree._fields:
             out += tree_leaves_with_path(getattr(tree, f), f"{prefix}.{f}")
+        return out
+    if isinstance(tree, tuple):
+        out = []
+        for i, v in enumerate(tree):
+            out += tree_leaves_with_path(v, f"{prefix}[{i}]")
         return out
     return [(prefix, tree)]
 
