@@ -1,8 +1,13 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100 is the target).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against DIR
 
-Phases, each printed on its own line; any failure exits non-zero:
+``--against DIR`` only times ``subround`` and ``cms`` built from
+``DIR/subround.cu`` and ``DIR/cms.cu`` (another version of each, such as
+a parent commit's, extracted with ``git show``) against the tree's, in
+turns, and prints no result line.  With no argument, the phases, each
+printed on its own line; any failure exits non-zero:
 
 1. device: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: ``nvcc`` compiles the four kernels for sm_90a, one process per
@@ -10,9 +15,13 @@ Phases, each printed on its own line; any failure exits non-zero:
    orbit_match}/kernel.cu``), and prints ``ptxas``'s report for each;
 3. each kernel against its plain version on the card over fuzz cases and
    the shapes of the paper's rack (exactly; bf16 ``hot_gather`` rows
-   within rtol = atol = 2e-2), then ms per launch (CUDA events over 1,000
-   launches) for the kernel, its wrapper, the plain version and an empty
-   kernel launched the same way (the launch floor);
+   within rtol = atol = 2e-2), then its times: ``device_us``, the device
+   time per launch (1,000 launches captured in a CUDA graph, replays timed
+   with CUDA events) and ``device_floor_us``, an empty kernel with the same
+   grid timed the same way; ``ms``, CUDA events around 1,000 direct
+   launches, and ``host_issue_ms``, the empty kernel read that way (the
+   host's cost of issuing a call, which ``ms`` reads wherever the kernel is
+   faster than it); the wrapper's and the plain version's ms;
 4. main path at the paper's scale (``configs/orbitcache_paper.py``: 10M
    keys, C = 128, 32 servers, 4M rps offered): preload the 128 hottest
    keys, run 1,000 windows through ``RackSimulator.run``, check that every
@@ -72,7 +81,9 @@ def phase(name, **kv):
 
 def timed(fn, n=TIMED_LAUNCHES):
     """ms per call of ``fn``: CUDA events around ``n`` calls, after a
-    warm-up."""
+    warm-up.  For a kernel launched through ``ctypes`` this reads the
+    slower of the host's cost of issuing a call and the device's time per
+    kernel: see :func:`device_timed` for the device alone."""
     for _ in range(20):
         fn()
     torch.cuda.synchronize()
@@ -83,6 +94,59 @@ def timed(fn, n=TIMED_LAUNCHES):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def device_timed(launch, n=TIMED_LAUNCHES, replays=5):
+    """``(µs per launch on the device, method)`` for ``launch(stream)``,
+    which issues one launch (with any stream operation it needs, such as a
+    memset) on the stream it is given, with fixed pointers.
+
+    ``n`` launches are captured in a CUDA graph and replays of it are timed
+    with CUDA events, so the host's issue cost is out of the reading.  If
+    the capture fails, ``self_device_time_total`` of the device events that
+    ``torch.profiler`` sees over ``n`` direct launches, over ``n``."""
+    stream = torch.cuda.current_stream()
+    for _ in range(20):
+        launch(stream.cuda_stream)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            cap = torch.cuda.current_stream().cuda_stream
+            for _ in range(n):
+                launch(cap)
+        graph.replay()
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for _ in range(replays):
+            graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) * 1e3 / (replays * n), "cuda_graph"
+    except RuntimeError as err:
+        phase("device_timed_fallback", reason=str(err)[:200])
+        torch.cuda.synchronize()
+    events, _ = device_profile(
+        lambda: [launch(stream.cuda_stream) for _ in range(n)])
+    return device_us(events) / n, "profiler"
+
+
+def kernel_times(launch, empty, wrapper, plain):
+    """The timings every kernel reports, ``launch(stream)`` and
+    ``empty(stream)`` issuing one launch of the kernel and of the empty
+    kernel with the same grid and shared memory: ``device_us`` and
+    ``device_floor_us`` (device alone, :func:`device_timed`), and ``ms``
+    and ``host_issue_ms`` (CUDA events around back-to-back direct
+    launches, which read the host's issue cost per call wherever it
+    exceeds the device time), the wrapper's and the plain version's ms."""
+    stream = torch.cuda.current_stream().cuda_stream
+    dev_us, method = device_timed(launch)
+    floor_us, _ = device_timed(empty)
+    return dict(device_us=dev_us, device_floor_us=floor_us,
+                device_timing=method, ms=timed(lambda: launch(stream)),
+                host_issue_ms=timed(lambda: empty(stream)),
+                wrapper_ms=timed(wrapper), plain_ms=timed(plain))
 
 
 def bound(nbytes, ops):
@@ -130,9 +194,14 @@ def max_abs_err(got, want):
 # --------------------------------------------------------------------------
 # subround cases (numpy twin of the reference test suite's fuzz generator)
 # --------------------------------------------------------------------------
-def subround_case(seed, b, c, s, f, budget=None, fill=None, dead=False):
+def subround_case(seed, b, c, s, f, budget=None, fill=None, dead=False,
+                  one_key=False, dup=False):
     """Random-but-consistent inputs of one subround, as numpy arrays in the
-    kernel's argument order (hash words as int32 bit patterns)."""
+    kernel's argument order (hash words as int32 bit patterns).
+    ``one_key``: every lane wants entry 0, valid and occupied, so one
+    entry's admission runs across every warp of the block; ``dup``: a
+    quarter of the entries copy the key of another, all occupied, so that
+    ``pop`` counts both and ``cidx`` takes the first."""
     from repro_torch.core.hashing import hash128_u32_np
     rng = np.random.default_rng(seed)
     i32 = lambda a: np.asarray(a, np.int32)
@@ -152,7 +221,7 @@ def subround_case(seed, b, c, s, f, budget=None, fill=None, dead=False):
     front = rng.integers(0, s, c)
     if budget is None:
         budget = int(rng.choice([0, 1, int(rng.integers(2, 10)), 10_000]))
-    return [
+    args = [
         hash128_u32_np(q).view(np.int32),
         i32(valid & (op_class == 0)), i32(valid & (op_class == 1)),
         i32(valid & (op_class == 2)),
@@ -171,6 +240,17 @@ def subround_case(seed, b, c, s, f, budget=None, fill=None, dead=False):
         i32(rng.integers(0, 5, c * f)), i32(rng.integers(0, 1500, c * f)),
         i32(rng.integers(1, f + 1, c)), np.int32(budget),
     ]
+    hk, want, thk, occ, stv = (args[i] for i in (0, 1, 12, 13, 14))
+    if dup:
+        n = max(1, c // 4)
+        src, dst = rng.integers(0, c, n), rng.integers(0, c, n)
+        thk[dst] = thk[src]
+        occ[src], occ[dst] = 1, 1
+    if one_key:
+        hk[:] = thk[0]
+        want[:] = 1
+        occ[0], stv[0] = 1, 1
+    return args
 
 
 # (b, c, s, f, j): the CPU tests' fuzz shapes, the kernel-test shapes, the
@@ -179,7 +259,12 @@ FUZZ_SHAPES = ((32, 8, 4, 1, 4), (48, 16, 8, 2, 8))
 PAPER = (352, 128, 8, 1, 8)
 EXTRA_SHAPES = ((24, 8, 4, 1, 4), (64, 16, 8, 2, 8), (17, 5, 3, 2, 4),
                 (300, 130, 8, 1, 8), PAPER, (4096, 128, 8, 1, 8),
-                (64, 16, 8, 4, 8))
+                (64, 16, 8, 4, 8), (33, 8, 4, 1, 4), (1000, 128, 8, 1, 8))
+# the cases aimed at the kernel's parallel admission and its match: one
+# entry wanted across every warp (and, past 512 lanes, every round of the
+# block), and duplicate occupied entries
+TARGETED_SHAPES = ((33, 8, 4, 1, 4), (64, 16, 8, 4, 8), PAPER,
+                   (1000, 128, 8, 1, 8), (4096, 128, 8, 1, 8))
 
 
 def check_kernel(dev):
@@ -192,6 +277,12 @@ def check_kernel(dev):
         cases += [(shp, dict(seed=k)), (shp, dict(seed=k, budget=0)),
                   (shp, dict(seed=k, fill="full", budget=3)),
                   (shp, dict(seed=k, dead=True))]
+    for k, shp in enumerate(TARGETED_SHAPES):
+        cases += [(shp, dict(seed=50 + k, one_key=True, fill="empty",
+                             budget=10_000)),
+                  (shp, dict(seed=50 + k, one_key=True)),
+                  (shp, dict(seed=50 + k, dup=True)),
+                  (shp, dict(seed=60 + k, dup=True, one_key=True))]
     max_err = 0.0
     for (b, c, s, f, j), kw in cases:
         args = [torch.from_numpy(np.array(a)).to(dev)
@@ -220,22 +311,17 @@ def time_kernel(dev):
     outs = subround(*args, s, f, j)
     ptrs = ([a.data_ptr() for a in args[:-1]]
             + [args[-1].reshape(1).data_ptr()] + [o.data_ptr() for o in outs])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ms = timed(lambda: kernel.launch(ptrs, b, c, s, f, j, stream))
-    # an empty kernel, launched the same way: the floor launching sets
-    launch_floor_ms = timed(lambda: kernel.launch(ptrs, b, c, s, f, j, stream,
-                                                  empty=True))
-    wrapper_ms = timed(lambda: subround(*args, s, f, j))
-    plain_ms = timed(lambda: subround_ref(*args, queue_size=s, max_frags=f,
-                                          max_serves=j))
+    times = kernel_times(
+        lambda st: kernel.launch(ptrs, b, c, s, f, j, st),
+        lambda st: kernel.launch(ptrs, b, c, s, f, j, st, empty=True),
+        lambda: subround(*args, s, f, j),
+        lambda: subround_ref(*args, queue_size=s, max_frags=f, max_serves=j))
     # least time: every input read once and every output written once over
     # HBM, against the match's B*C*5 32-bit operations over the scalar rate
     nbytes = (sum(a.numel() * a.element_size() for a in args)
               + sum(o.numel() * o.element_size() for o in outs))
     assert len(outs) == len(SubroundOuts._fields)
-    return dict(ms=ms, launch_floor_ms=launch_floor_ms,
-                wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                **bound(nbytes, b * c * 5))
+    return dict(**times, **bound(nbytes, b * c * 5))
 
 
 # --------------------------------------------------------------------------
@@ -246,9 +332,12 @@ def time_kernel(dev):
 CMS_PAPER = (32, 1408, 2048)
 
 
-def cms_case(seed, n, b, w, density, dev):
+def cms_case(seed, n, b, w, density, dev, pattern=None, tile=None):
     """(idx, mask, counts) on ``dev``: repeated keys, per-sketch masks
-    and a nonzero starting sketch; ``n`` None means one sketch."""
+    and a nonzero starting sketch; ``n`` None means one sketch.
+    ``pattern`` replaces the random mask: "tile_end" masks one lane, the
+    last of the second tile (of the first where there is one), and
+    "one_tile" masks every lane of that tile and no other."""
     from repro_torch.core.hashing import hash128_u32_np
     from repro_torch.kernels.cms.ops import rows_for
     rng = np.random.default_rng(seed)
@@ -259,6 +348,14 @@ def cms_case(seed, n, b, w, density, dev):
                             .astype(np.int32)).to(dev)
     counts = torch.from_numpy(rng.integers(0, 51, lead + (5, w))
                               .astype(np.int32)).to(dev)
+    if pattern is not None:
+        t0 = tile if b > tile else 0
+        t1 = min(t0 + tile, b)
+        mask.zero_()
+        if pattern == "tile_end":
+            mask[..., t1 - 1] = 1
+        else:
+            mask[..., t0:t1] = 1
     return rows_for(hk, w), mask, counts
 
 
@@ -272,10 +369,29 @@ def check_cms(dev):
              for blk in (32, 256)]
     n, b, w = CMS_PAPER
     cases += [(n, b, w, p, 256) for p in (1 / 32, 0.5, 1.0)]
+    # aimed at the kernel's list of masked lanes and its vector copies:
+    # widths not a multiple of 4 (and 1,000, whose sketch rows are), one
+    # lane past the rack's batch, one masked lane at the end of a tile,
+    # one tile wholly masked and the others not
+    cases += [(n, b, w, p, blk) for n in (None, 32) for b in (257, 1409)
+              for w in (1000, 2047) for p in (1 / 32, 1.0)
+              for blk in (32, 256)]
+    cases += [(n, 1409, 2048, p, 256) for n in (None, 32)
+              for p in (1 / 32, 0.5)]
+    cases += [(n, b, w, pat, blk) for pat in ("tile_end", "one_tile")
+              for n in (None, 4) for b in (7, 600, 1409)
+              for w in (64, 2047) for blk in (32, 256)]
+    # tiles longer than the kernel's list (queried, then updated, unit by
+    # unit): past 4,096 lanes, and beside a sketch that leaves room for
+    # 512 lanes only
+    cases += [(None, 5000, 64, 0.5, 5000), (2, 1000, 10500, 0.5, 1000),
+              (2, 1000, 10500, 0.5, 256)]
     max_err = 0.0
     for i, (n, b, w, p, blk) in enumerate(cases):
-        idx, mask, counts = cms_case(i, n, b, w, p, dev)
         tile = tile_for(b, blk)
+        pat = p if isinstance(p, str) else None
+        idx, mask, counts = cms_case(i, n, b, w, 0.0 if pat else p, dev,
+                                     pattern=pat, tile=tile)
         got = update_query(idx, mask, counts, tile)
         want = cms_update_query_fast(idx, mask, counts, block_b=tile)
         torch.cuda.synchronize()
@@ -298,23 +414,20 @@ def time_cms(dev):
     idx, mask, counts = cms_case(7, n, b, w, 1 / 32, dev)
     tile = tile_for(b)
     out, est = update_query(idx, mask, counts, tile)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (idx.data_ptr(), mask.data_ptr(), counts.data_ptr(),
             out.data_ptr(), est.data_ptr())
-    ms = timed(lambda: kernel.launch(*ptrs, n, b, w, tile, stream))
-    floor = timed(lambda: kernel.launch(*ptrs, n, b, w, tile, stream,
-                                        empty=True))
-    wrapper_ms = timed(lambda: update_query(idx, mask, counts, tile))
-    plain_ms = timed(lambda: cms_update_query_fast(idx, mask, counts,
-                                                   block_b=tile))
+    times = kernel_times(
+        lambda st: kernel.launch(*ptrs, n, b, w, tile, st),
+        lambda st: kernel.launch(*ptrs, n, b, w, tile, st, empty=True),
+        lambda: update_query(idx, mask, counts, tile),
+        lambda: cms_update_query_fast(idx, mask, counts, block_b=tile))
     # every input read once, every output written once; per masked lane
     # five gathers, four mins and five adds
     nbytes = 4 * (idx.numel() + mask.numel() + 2 * counts.numel()
                   + est.numel())
     ops = 14 * int(mask.sum())
-    return dict(shape=dict(n=n, b=b, w=w, tile=tile), ms=ms,
-                launch_floor_ms=floor, wrapper_ms=wrapper_ms,
-                plain_ms=plain_ms, library_ms=None, **bound(nbytes, ops))
+    return dict(shape=dict(n=n, b=b, w=w, tile=tile), **times,
+                library_ms=None, **bound(nbytes, ops))
 
 
 # --------------------------------------------------------------------------
@@ -385,18 +498,18 @@ def time_hot_gather(dev):
     from repro_torch.kernels.hot_gather.ops import hot_gather
     from repro_torch.kernels.hot_gather.ref import hot_gather_ref
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
     calls = []
     for b, c, d in HG_CALLS:
         ids, hot, rows = hg_case(b + c, b, c, d, torch.int32, False, dev)
         out, hit = hot_gather(ids, hot, rows)
         ptrs = (ids.data_ptr(), hot.data_ptr(), rows.data_ptr(),
                 out.data_ptr(), hit.data_ptr())
-        ms = timed(lambda: kernel.launch(*ptrs, b, c, d, rows.dtype, stream))
-        floor = timed(lambda: kernel.launch(*ptrs, b, c, d, rows.dtype,
-                                            stream, empty=True))
-        wrapper_ms = timed(lambda: hot_gather(ids, hot, rows))
-        plain_ms = timed(lambda: hot_gather_ref(ids, hot, rows))
+        times = kernel_times(
+            lambda st: kernel.launch(*ptrs, b, c, d, rows.dtype, st),
+            lambda st: kernel.launch(*ptrs, b, c, d, rows.dtype, st,
+                                     empty=True),
+            lambda: hot_gather(ids, hot, rows),
+            lambda: hot_gather_ref(ids, hot, rows))
         # inputs once, outputs once; a compare per (id, hot id) and an add
         # per match and column
         matches = int((ids[:, None] == hot[None, :]).sum())
@@ -409,9 +522,7 @@ def time_hot_gather(dev):
             by_type[f"library_{tag}_two_calls_ms"] = timed(
                 lambda: (f_ids[:, None] == f_hot[None, :]).to(f_rows.dtype)
                 @ f_rows)
-        calls.append(dict(shape=dict(b=b, c=c, d=d), ms=ms,
-                          launch_floor_ms=floor, wrapper_ms=wrapper_ms,
-                          plain_ms=plain_ms, **by_type,
+        calls.append(dict(shape=dict(b=b, c=c, d=d), **times, **by_type,
                           **bound(nbytes, b * c + matches * d)))
     return calls
 
@@ -511,11 +622,12 @@ def run_orbit_match(dev, live):
     b, c = hkey.shape[0], thk.shape[0]
     outs = orbit_match(hkey, thk, occ, val, mask)
     ptrs = [a.data_ptr() for a in (hkey, thk, occ, val, mask, *outs)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ms = timed(lambda: kernel.launch(*ptrs, b, c, stream))
-    floor = timed(lambda: kernel.launch(*ptrs, b, c, stream, empty=True))
-    wrapper_ms = timed(lambda: orbit_match(hkey, thk, occ, val, mask))
-    plain_ms = timed(lambda: orbit_match_ref(hkey, thk, occ, val, mask))
+    # each launch zeroes `pop` on its stream first, the empty one too
+    times = kernel_times(
+        lambda st: kernel.launch(*ptrs, b, c, st),
+        lambda st: kernel.launch(*ptrs, b, c, st, empty=True),
+        lambda: orbit_match(hkey, thk, occ, val, mask),
+        lambda: orbit_match_ref(hkey, thk, occ, val, mask))
     # inputs once, outputs once; the operations the kernel's compare chain
     # does on these inputs: an occupancy test per (lane, entry), then words
     # compared until the first that differs, and an add per counted match
@@ -545,8 +657,7 @@ def run_orbit_match(dev, live):
     hits = sum(int(r[1].sum()) for r in results)
     if not hits:
         raise AssertionError("no lane of the live ingress hit the table")
-    rec = dict(ms=ms, launch_floor_ms=floor, wrapper_ms=wrapper_ms,
-               plain_ms=plain_ms, library_ms=None, **bound(nbytes, n_ops))
+    rec = dict(**times, library_ms=None, **bound(nbytes, n_ops))
     phase("orbit_match_vs_plain", cases=n_cases, equal=True,
           max_abs_err=err, shape=dict(b=b, c=c), **rec,
           entry_point=dict(calls=len(lanes), launches=launches,
@@ -696,8 +807,11 @@ def run_main_path(dev):
         # the device's idle share of the unprofiled main-path run, from the
         # device time per window the profiler saw; and of the profiled
         # window itself, whose wall time includes the profiler's overhead
+        sub_us = device_us(dev_events, "subround_kernel")
         phase("profile", windows=prof_windows, subround_kernels=sub,
               launch_count=kn.LAUNCHES["subround"],
+              subround_device_us_per_window=sub_us / prof_windows,
+              subround_device_us_per_launch=sub_us / max(sub, 1),
               device_kernels=sum(e.count for e in dev_events),
               device_busy_ms_per_window=busy_ms_per_window,
               wall_ms_per_window=wall * 1e3 / n_win,
@@ -835,6 +949,10 @@ def run_control_plane(dev):
         busy = device_us(dev_events) / 1e3 / period_w
         phase("control_plane_profile", windows=period_w,
               kernels_seen=by_kernel, kernel_device_us=us_by_kernel,
+              kernel_device_us_per_window={
+                  k: v / period_w for k, v in us_by_kernel.items()},
+              kernel_device_us_per_launch={
+                  k: v / by_kernel[k] for k, v in us_by_kernel.items()},
               device_kernels=sum(e.count for e in dev_events),
               device_busy_ms_per_window=busy,
               wall_ms_per_window=wall * 1e3 / n_win,
@@ -935,6 +1053,59 @@ def run_schemes(dev):
               forwarded=int(m_dev["fwd"].astype(np.int64).sum()))
 
 
+def time_against(dev, other_dir):
+    """``--against DIR``: time ``subround`` and ``cms`` built from
+    ``DIR/subround.cu`` and ``DIR/cms.cu`` (other versions of the two
+    kernels with the same C interface, such as a parent commit's) against
+    the tree's, in turns (other, tree, tree, other) on one card, by the
+    same timers as the full run; each version is first held against the
+    plain version at the timed shape."""
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cms import kernel as cms_kernel
+    from repro_torch.kernels.cms.ops import update_query
+    from repro_torch.kernels.cms.ref import cms_update_query_fast
+    from repro_torch.kernels.subround import kernel as sr_kernel
+    from repro_torch.kernels.subround.ops import subround
+    from repro_torch.kernels.subround.ref import subround_ref
+
+    b, c, s, f, j = PAPER
+    sr_args = [torch.from_numpy(np.array(a)).to(dev)
+               for a in subround_case(7, b, c, s, f, budget=1000)]
+    n, cb, w = CMS_PAPER
+    cms_args = cms_case(7, n, cb, w, 1 / 32, dev)
+    checks = {
+        "subround": (sr_kernel, time_kernel, lambda: all(
+            torch.equal(g, x) for g, x in zip(
+                subround(*sr_args, s, f, j),
+                subround_ref(*sr_args, queue_size=s, max_frags=f,
+                             max_serves=j)))),
+        "cms": (cms_kernel, time_cms, lambda: all(
+            torch.equal(g, x) for g, x in zip(
+                update_query(*cms_args, 256),
+                cms_update_query_fast(*cms_args, block_b=256))))}
+    others = {k: _build.KernelLibrary(k, Path(other_dir) / f"{k}.cu",
+                                      mod.LIB.signatures)
+              for k, (mod, _, _) in checks.items()}
+    _build.build_all([mod.LIB for mod, _, _ in checks.values()]
+                     + list(others.values()))
+    for k, (mod, timer, equal) in checks.items():
+        tree, rows = mod.LIB, []
+        try:
+            for tag in ("other", "tree", "tree", "other"):
+                mod.LIB = others[k] if tag == "other" else tree
+                if not equal():
+                    raise AssertionError(f"{k} ({tag}) != plain version")
+                t = timer(dev)
+                rows.append(dict(version=tag, **{x: t[x] for x in (
+                    "device_us", "device_floor_us", "device_timing", "ms",
+                    "host_issue_ms")}))
+        finally:
+            mod.LIB = tree
+        phase("against", kernel=k, other=str(others[k].source), turns=rows)
+
+
 def compare_trees(a, b, path):
     if isinstance(a, tuple) and hasattr(a, "_fields"):
         return sum(compare_trees(x, y, f"{path}.{n}")
@@ -955,6 +1126,11 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this "
                  "smoke run needs a CUDA card")
+    against = None
+    if sys.argv[1:2] == ["--against"] and len(sys.argv) == 3:
+        against = sys.argv[2]
+    elif sys.argv[1:]:
+        sys.exit("usage: python3 chip_smoke.py [--against DIR]")
     from repro_torch.kernels import _build
     from repro_torch.kernels.cms import kernel as cms_kernel
     from repro_torch.kernels.hot_gather import kernel as hg_kernel
@@ -969,6 +1145,10 @@ def main():
     name = torch.cuda.get_device_name(0)
     phase("device", nvidia_smi=smi, torch_device=name,
           torch=torch.__version__, cuda=torch.version.cuda)
+    if against is not None:
+        time_against(dev, against)
+        print(smi)
+        return
 
     libs = [sr_kernel.LIB, cms_kernel.LIB, hg_kernel.LIB, om_kernel.LIB]
     t0 = time.perf_counter()
@@ -1008,17 +1188,24 @@ def main():
                         control_plane=cp_launches[k]))
 
     hg = hg_calls[1]          # ids [2048] against hot [2048], the largest
+
+    def device_times(t):
+        return {k: t[k] for k in ("device_us", "device_floor_us",
+                                  "device_timing", "host_issue_ms")}
+
     record = [
         dict(name="subround", route="cuda",
              source="src/repro_torch/kernels/subround/kernel.cu",
              replaces="src/repro/kernels/subround/kernel.py:32",
              **launches("subround"), max_abs_err=sr_err, ms=sr_time["ms"],
+             **device_times(sr_time),
              plain_ms=sr_time["plain_ms"], bound_ms=sr_time["bound_ms"],
              bound_by=sr_time["bound_by"], library_ms=None),
         dict(name="cms", route="cuda",
              source="src/repro_torch/kernels/cms/kernel.cu",
              replaces="src/repro/kernels/cms/kernel.py:26",
              **launches("cms"), max_abs_err=cms_err, ms=cms_time["ms"],
+             **device_times(cms_time),
              plain_ms=cms_time["plain_ms"], bound_ms=cms_time["bound_ms"],
              bound_by=cms_time["bound_by"], library_ms=None),
         dict(name="hot_gather", route="cuda",
@@ -1026,6 +1213,7 @@ def main():
              replaces="src/repro/kernels/hot_gather/kernel.py:22",
              **launches("hot_gather"),
              max_abs_err=max(hg_err.values()), ms=hg["ms"],
+             **device_times(hg),
              plain_ms=hg["plain_ms"], bound_ms=hg["bound_ms"],
              bound_by=hg["bound_by"], library_ms=None),
         dict(name="orbit_match", route="cuda",
@@ -1034,6 +1222,7 @@ def main():
              launches=om["launches"],
              launches_by_path=dict(orbit_match_entry_point=om["launches"]),
              max_abs_err=om["max_abs_err"], ms=om["ms"],
+             **device_times(om),
              plain_ms=om["plain_ms"], bound_ms=om["bound_ms"],
              bound_by=om["bound_by"], library_ms=None),
     ]

@@ -17,22 +17,47 @@ LIB = KernelLibrary("cms", Path(__file__).with_name("kernel.cu"),
                     {"cms_launch": _ARGS, "cms_empty_launch": _ARGS})
 
 
-def smem_bytes(width: int) -> int:
-    """Shared memory one block needs: its whole [5, W] sketch."""
-    return 4 * DEPTH * width
+THREADS = 512
+UNIT_MAX = 8 * THREADS          # lanes listed at once, at most
+ENTRY_WORDS = 2 + DEPTH         # lane, tile and five columns per listed lane
+FIXED_WORDS = 8 * THREADS // 32 + 1
+
+
+def unit_lanes(b: int, width: int) -> int:
+    """Lanes one block lists at once (mirrors ``unit_lanes`` in
+    ``kernel.cu``): the batch rounded up to whole passes of the block, at
+    most 4,096, at most what shared memory holds beside the sketch, and at
+    least one pass."""
+    fit = (MAX_SMEM_BYTES // 4 - DEPTH * width - FIXED_WORDS) // ENTRY_WORDS
+    want = min(max(-(-b // THREADS) * THREADS, THREADS), UNIT_MAX)
+    return max(min(fit // THREADS * THREADS, want), THREADS)
+
+
+def smem_bytes(width: int, b: int = 1) -> int:
+    """Shared memory one block needs (mirrors ``smem_bytes`` in
+    ``kernel.cu``): its whole [5, W] sketch and the list of the masked
+    lanes of one unit."""
+    return 4 * (DEPTH * width + ENTRY_WORDS * unit_lanes(b, width)
+                + FIXED_WORDS)
+
+
+def max_width() -> int:
+    """The widest sketch one block takes."""
+    return (MAX_SMEM_BYTES // 4 - ENTRY_WORDS * THREADS - FIXED_WORDS) \
+        // DEPTH
 
 
 def launch(idx: int, mask: int, counts_in: int, counts_out: int, est: int,
            n: int, b: int, width: int, tile: int, stream: int,
            empty: bool = False) -> None:
-    """Launch one block per sketch on ``stream`` (device addresses of
-    int32 ``idx[B, 5]``, ``mask[n, B]``, ``counts[n, 5, W]`` in and out and
-    ``est[n, B]``).  ``empty`` launches a kernel that does nothing, with
+    """Launch one block of 512 threads per sketch on ``stream`` (device
+    addresses of int32 ``idx[B, 5]``, ``mask[n, B]``, ``counts[n, 5, W]``
+    in and out and ``est[n, B]``).  ``empty`` launches a kernel that does nothing, with
     the same grid and shared memory, to time the launch floor."""
-    check_smem(smem_bytes(width),
-               f"cms kernel: a [{DEPTH}, {width}] sketch (W must stay <= "
-               f"{MAX_SMEM_BYTES // (4 * DEPTH)}; the sketch is not "
-               f"truncated)")
+    check_smem(smem_bytes(width, b),
+               f"cms kernel: a [{DEPTH}, {width}] sketch beside a list of "
+               f"{THREADS} lanes (W must stay <= "
+               f"{max_width()}; the sketch is not truncated)")
     fn = "cms_empty_launch" if empty else "cms_launch"
     LIB.call(fn, _P(idx), _P(mask), _P(counts_in), _P(counts_out), _P(est),
              n, b, width, tile, _P(stream))

@@ -8,33 +8,60 @@
 // What bounds it: nothing the card is short of.  At the paper's shape
 // (B = 352, C = 128, S = 8, F = 1, J = 8) it reads and writes about 0.1 MB,
 // well under a microsecond of HBM time, and does a few hundred thousand
-// integer compares; the launch and the in-order admission scan set its time.
+// integer compares.  What sets its time is latency: the launch, the
+// round trips to global memory that depend on one another, the barriers
+// between the phases of one block, and one SM's rate of stores.
 //
 // Design.  The Pallas kernel streams lane tiles through a sequential TPU
 // grid and carries per-entry running counts from one grid step to the next.
-// GPU blocks run in no order, so one block (one switch instance) owns the
-// whole batch and the tables live in shared memory:
-//   1. every thread matches its lanes against all C entries; popularity,
-//      write invalidations, validations and the install winners (atomicMax
-//      on the lane index: the last installer wins) accumulate in shared
-//      memory, since none of them depends on lane order;
-//   2. warp 0 walks the lanes in order, 32 at a time: a lane's admission
-//      offset is the entry's running count plus the number of earlier
-//      lanes of the chunk wanting the same entry (__match_any_sync), and an
-//      accepted lane records itself as the unique writer of its slot;
-//   3. block-wide, the tables are finalized: request-table winners, state
-//      bits and versions, orbit lines stamped with the post-batch version
-//      and refreshed by the drop-stale rule;
-//   4. the serving round splits the budget over live lines and gathers the
-//      J front slots of every entry.
+// GPU blocks run in no order, so one block of 512 threads (one switch
+// instance) owns the whole batch, and every table lives in shared memory.
+// Global memory is read in two rounds, the call-time inputs at the start
+// and the winners' payload words in phase 3, and each output is written
+// once:
+//   0. every thread issues its loads before it stores any: its first lane's
+//      hash words (one 16-byte load) and gates, and the call-time tables
+//      (hash words, state, queues, orbit lines, request table), which go
+//      into shared memory;
+//   1. one thread per lane compares the first hash word of four entries at
+//      a time (one 16-byte broadcast read of shared memory) and keeps the
+//      first candidate and their count; a single candidate is checked in
+//      full, and only a lane with several (a duplicate key, or a word
+//      shared by chance) walks all C entries.  Popularity counts every
+//      occupied matching entry, not just cidx: the lanes of a warp that
+//      share an entry add their count with one shared atomic
+//      (__match_any_sync).  Write invalidations, validations and the
+//      install winners (atomicMax on the lane index: the last installer
+//      wins) accumulate in shared memory, since none depends on lane order;
+//   2. admission, in parallel: in rounds of 512 lanes, each warp ranks its
+//      32 lanes per entry (__match_any_sync) and writes its per-entry
+//      counts to a [16 warps x C] table; an exclusive scan down each column,
+//      seeded by the count of earlier rounds, gives every warp its running
+//      count, so a lane's offset is prefix[warp][entry] + rank: the
+//      whole-batch exclusive count in lane order.  An accepted lane records
+//      itself as the unique writer of its slot; an entry's accepted count
+//      is min(free slots, lanes wanting it), clamped at 0;
+//   3. per entry, the state bits, versions, rear pointer and its F orbit
+//      lines (stamped with the post-batch version, refreshed by the
+//      drop-stale rule); per slot, the request table, finished in shared
+//      memory.  Payload words are read only for the lanes that won a slot
+//      or a line, by index, all issued before any is used;
+//   4. the serving round: one thread per grid cell (entry, j) gathers its
+//      slot from the shared request table.
 // No float arithmetic: `ts` travels as its 32-bit pattern.  Every array is
 // 4-byte, so the kernel sees them all as int32.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 7.4 us on the
+// device per launch at the paper's shape, against 28.4-29.1 us for the design
+// it replaced (one block of 256 threads, admission walked by one warp);
+// PERF.md has the numbers and their runs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr int kIn = 31;
 constexpr int kOut = 32;
 
@@ -72,179 +99,326 @@ __device__ __forceinline__ int floormod(int a, int b) {
   return r;
 }
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// One lane's inputs to the match: its hash words and its four gates.
+struct Lane {
+  int4 h;
+  int want, wreq, inst, frag;
+};
+
+__device__ __forceinline__ Lane load_lane(const int32_t* const* in, int b,
+                                          bool hk_vec) {
+  Lane l;
+  if (hk_vec) {
+    l.h = __ldg(reinterpret_cast<const int4*>(in[HKEY]) + b);
+  } else {
+    const int32_t* h = in[HKEY] + 4 * b;
+    l.h = make_int4(__ldg(h), __ldg(h + 1), __ldg(h + 2), __ldg(h + 3));
+  }
+  l.want = __ldg(in[WANT] + b);
+  l.wreq = __ldg(in[WREQ] + b);
+  l.inst = __ldg(in[INST] + b);
+  l.frag = __ldg(in[FRAG] + b);
+  return l;
+}
+
 __global__ void __launch_bounds__(kThreads) subround_kernel(Params p) {
-  extern __shared__ int32_t sm[];
+  extern __shared__ __align__(16) int32_t sm[];
   const int B = p.B, C = p.C, S = p.S, F = p.F, J = p.J;
+  const int C4 = (C + 3) & ~3, CF = C * F, CS = C * S;
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const int32_t* const* in = p.in;
   int32_t* const* out = p.out;
 
-  int32_t* s_cidx = sm;               // [B] first matching entry or -1
-  int32_t* s_thk = s_cidx + B;        // [4C]
-  int32_t* s_occ = s_thk + 4 * C;     // [C] call-time tables ...
+  int4* s_thk = reinterpret_cast<int4*>(sm);  // [C4] hash words per entry
+  int32_t* s_k0 = sm + 4 * C4;        // [C4] first hash word, 16-B aligned
+  int32_t* s_occ = s_k0 + C4;         // [C] call-time tables ...
   int32_t* s_stv = s_occ + C;
-  int32_t* s_qlen = s_stv + C;
+  int32_t* s_stver = s_stv + C;
+  int32_t* s_qlen = s_stver + C;
   int32_t* s_rear = s_qlen + C;
-  int32_t* s_run = s_rear + C;        // [C] want lanes seen so far
+  int32_t* s_front = s_rear + C;
+  int32_t* s_ofr = s_front + C;       // [C] fragment count, then post-install
+  int32_t* s_run = s_ofr + C;         // [C] want lanes of earlier rounds
   int32_t* s_newc = s_run + C;        // [C] accepted lanes
   int32_t* s_pop = s_newc + C;
   int32_t* s_bump = s_pop + C;        // [C] write invalidations
   int32_t* s_valf = s_bump + C;       // [C] validated by an install
   int32_t* s_ewin = s_valf + C;       // [C] last frag-0 installer
-  int32_t* s_stvf = s_ewin + C;       // [C] post-batch valid / version
-  int32_t* s_stverf = s_stvf + C;
-  int32_t* s_lcnt = s_stverf + C;     // [C] live lines per entry
-  int32_t* s_ofr = s_lcnt + C;        // [C] post-install fragment count
-  int32_t* s_lwin = s_ofr + C;        // [C*F] last installer per line
-  int32_t* s_rtw = s_lwin + C * F;    // [C*S] unique writer per slot
-  int32_t* s_nlive = s_rtw + C * S;   // [1]
+  int32_t* s_lcnt = s_ewin + C;       // [C] live lines per entry
+  int32_t* s_lwin = s_lcnt + C;       // [C*F] last installer per line
+  int32_t* s_line = s_lwin + CF;      // [4][C*F] live, kidx, version, vlen
+  int32_t* s_rtw = s_line + 4 * CF;   // [C*S] unique writer per slot
+  int32_t* s_rt = s_rtw + CS;         // [6][C*S] the request table
+  int32_t* s_cnt = s_rt + 6 * CS;     // [kWarps*C] admission counts
+  int32_t* s_wcid = s_cnt + kWarps * C;  // [B] entry a lane may queue at
+  int32_t* s_nlive = s_wcid + B;      // [1]
 
-  // ---- 0: call-time tables into shared memory, zero the accumulators ----
-  for (int i = tid; i < 4 * C; i += nt) s_thk[i] = in[THK][i];
-  for (int c = tid; c < C; c += nt) {
-    s_occ[c] = in[OCC][c];
-    s_stv[c] = in[STV][c];
-    s_qlen[c] = in[QLEN][c];
-    s_rear[c] = in[REAR][c];
-    s_run[c] = 0; s_newc[c] = 0; s_pop[c] = 0; s_bump[c] = 0;
-    s_valf[c] = 0; s_ewin[c] = -1; s_lcnt[c] = 0;
+  // ---- 0: every call-time input in flight at once, then shared memory ----
+  const bool hk_vec = aligned16(in[HKEY]);
+  Lane ln;
+  if (tid < B) ln = load_lane(in, tid, hk_vec);
+  const int budget = __ldg(in[BUDGET]);
+
+  const bool thk_vec = aligned16(in[THK]);
+  const int stage = max(max(C4, CF), CS);
+#pragma unroll 2
+  for (int i = tid; i < stage; i += nt) {
+    int4 k = make_int4(0, 0, 0, 0);   // padding: the match skips c >= C
+    int e[7], l[4], r[6];
+    if (i < C) {
+      const int32_t* t = in[THK] + 4 * i;
+      k = thk_vec ? __ldg(reinterpret_cast<const int4*>(t))
+                  : make_int4(__ldg(t), __ldg(t + 1), __ldg(t + 2),
+                              __ldg(t + 3));
+      const int src[7] = {OCC, STV, STVER, QLEN, REAR, FRONT, OFRAGS};
+#pragma unroll
+      for (int a = 0; a < 7; ++a) e[a] = __ldg(in[src[a]] + i);
+    }
+    if (i < CF) {
+      const int src[4] = {OLIVE, OKIDX, OVER, OVLEN};
+#pragma unroll
+      for (int a = 0; a < 4; ++a) l[a] = __ldg(in[src[a]] + i);
+    }
+    if (i < CS) {
+      const int src[6] = {RTC, RTS, RTP, RTTS, RTA, RTK};
+#pragma unroll
+      for (int a = 0; a < 6; ++a) r[a] = __ldg(in[src[a]] + i);
+    }
+    if (i < C4) {
+      s_thk[i] = k;
+      s_k0[i] = k.x;
+    }
+    if (i < C) {
+      int32_t* dst[7] = {s_occ, s_stv, s_stver, s_qlen, s_rear, s_front,
+                         s_ofr};
+#pragma unroll
+      for (int a = 0; a < 7; ++a) dst[a][i] = e[a];
+      s_run[i] = 0; s_pop[i] = 0; s_bump[i] = 0; s_valf[i] = 0;
+      s_ewin[i] = -1;
+    }
+    if (i < CF) {
+      s_lwin[i] = -1;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) s_line[a * CF + i] = l[a];
+    }
+    if (i < CS) {
+      s_rtw[i] = -1;
+#pragma unroll
+      for (int a = 0; a < 6; ++a) s_rt[a * CS + i] = r[a];
+    }
   }
-  for (int i = tid; i < C * F; i += nt) s_lwin[i] = -1;
-  for (int i = tid; i < C * S; i += nt) s_rtw[i] = -1;
+  for (int i = tid; i < kWarps * C; i += nt) s_cnt[i] = 0;
   if (tid == 0) s_nlive[0] = 0;
   __syncthreads();
 
   // ---- 1: match + the order-free accumulators ----------------------------
-  for (int b = tid; b < B; b += nt) {
-    const int h0 = in[HKEY][4 * b], h1 = in[HKEY][4 * b + 1];
-    const int h2 = in[HKEY][4 * b + 2], h3 = in[HKEY][4 * b + 3];
-    const bool want = in[WANT][b] > 0;
+  // The first hash word picks the candidates; a lane with one candidate
+  // checks it, a lane with more (a duplicate key, or a word shared by
+  // chance) walks every entry.  Warps stay converged, and a warp's lanes
+  // count the popularity of one entry with one shared atomic.
+  const int4* k0v = reinterpret_cast<const int4*>(s_k0);
+  for (int b0 = 0; b0 < B; b0 += nt) {
+    const int b = b0 + tid;
+    const bool inb = b < B;
+    if (inb && b0 > 0) ln = load_lane(in, b, hk_vec);
+    const int hx = ln.h.x;
+    int cand = -1, ncand = 0;
+    if (inb) {
+#pragma unroll 8
+      for (int q = 0; q < C4 / 4; ++q) {
+        const int4 k = k0v[q];
+        const int e[4] = {k.x, k.y, k.z, k.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool m = e[u] == hx;
+          cand = (m && cand < 0) ? 4 * q + u : cand;
+          ncand += m;
+        }
+      }
+    }
+    const bool want = inb && ln.want > 0;
     int first = -1;
-    for (int c = 0; c < C; ++c) {
-      if (s_occ[c] > 0 && s_thk[4 * c] == h0 && s_thk[4 * c + 1] == h1 &&
-          s_thk[4 * c + 2] == h2 && s_thk[4 * c + 3] == h3) {
-        if (first < 0) first = c;
-        // popularity counts every occupied matching entry, not just cidx
-        if (want) atomicAdd(&s_pop[c], 1);
+    if (ncand == 1 && cand < C && s_occ[cand] > 0) {
+      const int4 t = s_thk[cand];
+      if (t.y == ln.h.y && t.z == ln.h.z && t.w == ln.h.w) first = cand;
+    }
+    if (ncand > 1) {
+      for (int c = 0; c < C; ++c) {
+        const int4 t = s_thk[c];
+        if (s_occ[c] > 0 && t.x == hx && t.y == ln.h.y && t.z == ln.h.z &&
+            t.w == ln.h.w) {
+          if (first < 0) first = c;
+          // popularity counts every occupied matching entry
+          if (want) atomicAdd(&s_pop[c], 1);
+        }
       }
     }
-    const bool hit = first >= 0;
-    out[O_HIT][b] = hit;
-    out[O_VHIT][b] = hit && s_stv[first] > 0;
-    s_cidx[b] = first;
-    if (hit) {
-      if (in[WREQ][b] > 0) atomicAdd(&s_bump[first], 1);
-      if (in[INST][b] > 0) {
-        s_valf[first] = 1;
-        const int fr = min(max(in[FRAG][b], 0), F - 1);
-        atomicMax(&s_lwin[first * F + fr], b);
-        if (in[FRAG][b] == 0) atomicMax(&s_ewin[first], b);
+    const int pkey = (ncand == 1 && want && first >= 0) ? first : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, pkey);
+    if (pkey >= 0 && lane == __ffs(peers) - 1)
+      atomicAdd(&s_pop[pkey], __popc(peers));
+    if (inb) {
+      const bool hit = first >= 0;
+      const bool valid = hit && s_stv[first] > 0;
+      out[O_HIT][b] = hit;
+      out[O_VHIT][b] = valid;
+      s_wcid[b] = (want && valid) ? first : -1;
+      if (hit) {
+        if (ln.wreq > 0) atomicAdd(&s_bump[first], 1);
+        if (ln.inst > 0) {
+          s_valf[first] = 1;
+          const int fr = min(max(ln.frag, 0), F - 1);
+          atomicMax(&s_lwin[first * F + fr], b);
+          if (ln.frag == 0) atomicMax(&s_ewin[first], b);
+        }
       }
     }
   }
   __syncthreads();
 
-  // ---- 2: admission, in lane order, one warp ------------------------------
-  if (tid < 32) {
-    const unsigned lt = (1u << tid) - 1u;
-    for (int base = 0; base < B; base += 32) {
-      const int b = base + tid;
-      const bool inb = b < B;
-      const int cid = inb ? s_cidx[b] : -1;
-      const bool want = inb && cid >= 0 && in[WANT][b] > 0 && s_stv[cid] > 0;
-      const unsigned peers = __match_any_sync(0xffffffffu, want ? cid : -1);
-      const int rank = __popc(peers & lt);
-      const int run = want ? s_run[cid] : 0;
-      const int offset = run + rank;
-      const bool acc = want && offset < S - s_qlen[cid];
-      if (inb) {
-        out[O_ACC][b] = acc;
-        out[O_OVF][b] = want && !acc;
+  // ---- 2: admission, whole-batch exclusive counts in lane order ----------
+  const unsigned lt = (1u << lane) - 1u;
+  for (int r0 = 0; r0 < B; r0 += nt) {
+    if (r0 > 0) {
+      for (int i = tid; i < kWarps * C; i += nt) s_cnt[i] = 0;
+      __syncthreads();
+    }
+    const int b = r0 + tid;
+    const int cid = b < B ? s_wcid[b] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, cid);
+    const int rank = __popc(peers & lt);
+    if (cid >= 0 && rank == 0) s_cnt[warp * C + cid] = __popc(peers);
+    __syncthreads();
+    for (int c = tid; c < C; c += nt) {   // exclusive scan down the column
+      int run = s_run[c];
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const int v = s_cnt[w * C + c];
+        s_cnt[w * C + c] = run;
+        run += v;
       }
-      if (acc) s_rtw[cid * S + floormod(s_rear[cid] + offset, S)] = b;
-      const unsigned accm = __ballot_sync(0xffffffffu, acc);
-      __syncwarp();
-      if (want && rank == 0) {   // one lane per entry group
-        s_run[cid] = run + __popc(peers);
-        s_newc[cid] += __popc(peers & accm);
+      s_run[c] = run;
+    }
+    __syncthreads();
+    if (b < B) {
+      bool acc = false;
+      if (cid >= 0) {
+        const int offset = s_cnt[warp * C + cid] + rank;
+        acc = offset < S - s_qlen[cid];
+        if (acc) s_rtw[cid * S + floormod(s_rear[cid] + offset, S)] = b;
       }
-      __syncwarp();
+      out[O_ACC][b] = acc;
+      out[O_OVF][b] = cid >= 0 && !acc;
+    }
+    __syncthreads();
+  }
+
+  // ---- 3: state table, orbit lines and request table ---------------------
+  // The winners' payload words are the only global reads left; each thread
+  // issues all of its own before it uses any.
+  int my_live = 0;
+  const int fin = max(C, CS);
+  for (int i = tid; i < fin; i += nt) {
+    const int ws = i < CS ? s_rtw[i] : -1;
+    int pay[5];
+    if (ws >= 0) {
+      const int src[5] = {CLIENT, SEQ, PORT, TS, KIDX};
+#pragma unroll
+      for (int a = 0; a < 5; ++a) pay[a] = __ldg(in[src[a]] + ws);
+    }
+    int ew = -1, nfr = 0;
+    if (i < C) {
+      ew = s_ewin[i];
+      if (ew >= 0) nfr = __ldg(in[NFRAGS] + ew);
+    }
+    if (i < C) {
+      const int c = i;
+      const int bump = s_bump[c];
+      const int stvf = ((s_stv[c] > 0) && bump == 0) || s_valf[c] > 0;
+      const int stverf = s_stver[c] + bump;
+      // lanes wanting c took offsets 0 .. run-1; those below free got in
+      const int newc = max(0, min(S - s_qlen[c], s_run[c]));
+      s_newc[c] = newc;
+      out[O_STV][c] = stvf;
+      out[O_STVER][c] = stverf;
+      out[O_POP][c] = s_pop[c];
+      const int ofr = ew >= 0 ? max(nfr, 1) : s_ofr[c];
+      s_ofr[c] = ofr;
+      out[O_OFRAGS][c] = ofr;
+      out[O_REAR][c] = floormod(s_rear[c] + newc, S);
+      int lcnt = 0, vsum = 0;
+      for (int f = 0; f < F; ++f) {
+        const int l = c * F + f;
+        const int w = s_lwin[l];
+        const bool wr = w >= 0;
+        int okidx = s_line[CF + l], ovlen = s_line[3 * CF + l];
+        if (wr) {
+          okidx = __ldg(in[KIDX] + w);
+          ovlen = __ldg(in[VLEN] + w);
+        }
+        const int over = wr ? stverf : s_line[2 * CF + l];
+        const bool live = s_occ[c] > 0 && stvf && over == stverf &&
+                          (wr || s_line[l] > 0);
+        out[O_OLIVE][l] = live;
+        out[O_OKIDX][l] = okidx;
+        out[O_OVER][l] = over;
+        out[O_OVLEN][l] = ovlen;
+        out[O_VWR][l] = wr ? w : 0;
+        out[O_VWN][l] = wr;
+        lcnt += live;
+        vsum += ovlen;
+        if (f == 0) {
+          out[O_LKX][c] = okidx;
+          out[O_LVR][c] = over;
+        }
+      }
+      s_lcnt[c] = lcnt;
+      out[O_LVL][c] = vsum;
+      my_live += lcnt;
+    }
+    if (i < CS) {
+      const int dst[6] = {O_RTC, O_RTS, O_RTP, O_RTTS, O_RTA, O_RTK};
+      const int from[6] = {0, 1, 2, 3, -1, 4};
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        int v = s_rt[a * CS + i];
+        if (ws >= 0) {
+          v = from[a] < 0 ? 0 : pay[from[a]];
+          s_rt[a * CS + i] = v;
+        }
+        out[dst[a]][i] = v;
+      }
     }
   }
+  my_live = __reduce_add_sync(0xffffffffu, my_live);
+  if (lane == 0 && my_live) atomicAdd(s_nlive, my_live);
   __syncthreads();
 
-  // ---- 3: finalize state table, request table and orbit lines ------------
-  for (int c = tid; c < C; c += nt) {
-    const int stvf = ((s_stv[c] > 0) && s_bump[c] == 0) || s_valf[c] > 0;
-    const int stverf = in[STVER][c] + s_bump[c];
-    s_stvf[c] = stvf;
-    s_stverf[c] = stverf;
-    out[O_STV][c] = stvf;
-    out[O_STVER][c] = stverf;
-    out[O_POP][c] = s_pop[c];
-    const int ew = s_ewin[c];
-    s_ofr[c] = ew >= 0 ? max(in[NFRAGS][ew], 1) : in[OFRAGS][c];
-    out[O_OFRAGS][c] = s_ofr[c];
-    out[O_REAR][c] = floormod(s_rear[c] + s_newc[c], S);
+  // ---- 4: serving round, one thread per grid cell, from shared memory ----
+  const int per_line = floordiv(budget, max(s_nlive[0], 1));
+  for (int g = tid; g < C * J; g += nt) {
+    const int c = g / J, j = g - c * J;
+    const int budget_c = s_lcnt[c] >= s_ofr[c] ? per_line : 0;
+    const int n_serve = min(s_qlen[c] + s_newc[c], budget_c);
+    const int flat = c * S + floormod(s_front[c] + j, S);
+    out[O_SRV][g] = j < n_serve;
+    out[O_GCL][g] = s_rt[flat];
+    out[O_GSQ][g] = s_rt[CS + flat];
+    out[O_GPT][g] = s_rt[2 * CS + flat];
+    out[O_GTS][g] = s_rt[3 * CS + flat];
+    out[O_GKX][g] = s_rt[5 * CS + flat];
   }
-  for (int i = tid; i < C * S; i += nt) {
-    const int w = s_rtw[i];
-    const bool wr = w >= 0;
-    out[O_RTC][i] = wr ? in[CLIENT][w] : in[RTC][i];
-    out[O_RTS][i] = wr ? in[SEQ][w] : in[RTS][i];
-    out[O_RTP][i] = wr ? in[PORT][w] : in[RTP][i];
-    out[O_RTTS][i] = wr ? in[TS][w] : in[RTTS][i];
-    out[O_RTA][i] = wr ? 0 : in[RTA][i];
-    out[O_RTK][i] = wr ? in[KIDX][w] : in[RTK][i];
-  }
-  __syncthreads();
-  for (int l = tid; l < C * F; l += nt) {
-    const int c = l / F;
-    const int w = s_lwin[l];
-    const bool wr = w >= 0;
-    const int over = wr ? s_stverf[c] : in[OVER][l];
-    const bool live = s_occ[c] > 0 && s_stvf[c] && over == s_stverf[c] &&
-                      (in[OLIVE][l] > 0 || wr);
-    out[O_OLIVE][l] = live;
-    out[O_OKIDX][l] = wr ? in[KIDX][w] : in[OKIDX][l];
-    out[O_OVER][l] = over;
-    out[O_OVLEN][l] = wr ? in[VLEN][w] : in[OVLEN][l];
-    out[O_VWR][l] = wr ? w : 0;
-    out[O_VWN][l] = wr;
-    if (live) {
-      atomicAdd(&s_lcnt[c], 1);
-      atomicAdd(s_nlive, 1);
-    }
-  }
-  __syncthreads();
-
-  // ---- 4: serving round ----------------------------------------------------
-  const int per_line = floordiv(in[BUDGET][0], max(s_nlive[0], 1));
   for (int c = tid; c < C; c += nt) {
     const int budget_c = s_lcnt[c] >= s_ofr[c] ? per_line : 0;
     const int qlen2 = s_qlen[c] + s_newc[c];
-    const int n_serve = min(qlen2, budget_c);
-    const int front0 = in[FRONT][c];
-    int n_pop = 0;
-    for (int j = 0; j < J; ++j) {
-      const int g = c * J + j;
-      const int flat = c * S + floormod(front0 + j, S);
-      const bool sv = j < n_serve;
-      n_pop += sv;
-      out[O_SRV][g] = sv;
-      out[O_GCL][g] = out[O_RTC][flat];
-      out[O_GSQ][g] = out[O_RTS][flat];
-      out[O_GPT][g] = out[O_RTP][flat];
-      out[O_GTS][g] = out[O_RTTS][flat];
-      out[O_GKX][g] = out[O_RTK][flat];
-    }
+    const int n_pop = min(max(min(qlen2, budget_c), 0), J);
     out[O_QLEN][c] = qlen2 - n_pop;
-    out[O_FRONT][c] = floormod(front0 + n_pop, S);
-    int vsum = 0;
-    for (int f = 0; f < F; ++f) vsum += out[O_OVLEN][c * F + f];
-    out[O_LKX][c] = out[O_OKIDX][c * F];
-    out[O_LVL][c] = vsum;
-    out[O_LVR][c] = out[O_OVER][c * F];
+    out[O_FRONT][c] = floormod(s_front[c] + n_pop, S);
   }
 }
 
@@ -254,7 +428,9 @@ __global__ void __launch_bounds__(kThreads) empty_kernel(Params) {}
 
 // Dynamic shared memory one launch needs, in bytes (kernel.py mirrors it).
 long long smem_bytes(int B, int C, int S, int F) {
-  return 4LL * (B + (long long)C * (18 + F + S) + 1);
+  const long long c4 = (C + 3) & ~3;
+  return 4LL * (5 * c4 + (long long)C * (14 + 5 * F + 7 * S + kWarps) +
+                B + 1);
 }
 
 }  // namespace

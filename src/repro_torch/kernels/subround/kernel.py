@@ -17,21 +17,29 @@ LIB = KernelLibrary("subround", Path(__file__).with_name("kernel.cu"),
                      "subround_empty_launch": _ARGS})
 
 
+WARPS = 16           # kThreads / 32 in kernel.cu
+
+
 def smem_bytes(b: int, c: int, s: int, f: int) -> int:
     """Shared memory one launch needs (mirrors ``smem_bytes`` in
-    ``kernel.cu``)."""
-    return 4 * (b + c * (18 + f + s) + 1)
+    ``kernel.cu``): the hash table padded to whole 16-byte groups of
+    entries, 14 words per entry, 5 per line, 7 per slot, one admission
+    count per warp and entry, one word per lane and the live-line
+    count."""
+    c4 = (c + 3) // 4 * 4
+    return 4 * (5 * c4 + c * (14 + 5 * f + 7 * s + WARPS) + b + 1)
 
 
 def launch(ptrs: list[int], b: int, c: int, s: int, f: int, j: int,
            stream: int, empty: bool = False) -> None:
-    """Launch on ``stream``; ``ptrs`` are the 31 input then 32 output
-    device addresses.  Raises if the launch is refused.  ``empty`` launches
-    a kernel that does nothing, with the same parameters, block and shared
-    memory, to time the launch floor."""
+    """Launch one block of 512 threads on ``stream``; ``ptrs`` are the 31
+    input then 32 output device addresses.  Raises if the launch is
+    refused.  ``empty`` launches a kernel that does nothing, with the same
+    parameters, block and shared memory, to time the launch floor."""
     check_smem(smem_bytes(b, c, s, f),
-               f"subround kernel: B={b}, C={c}, S={s}, F={f} (B + "
-               f"C*(18+F+S) + 1 words must stay <= {MAX_SMEM_BYTES // 4})")
+               f"subround kernel: B={b}, C={c}, S={s}, F={f} (5*C4 + "
+               f"C*(30+5F+7S) + B + 1 words, C4 = C rounded up to a "
+               f"multiple of 4, must stay <= {MAX_SMEM_BYTES // 4})")
     arr = (ctypes.c_uint64 * len(ptrs))(*ptrs)
     fn = "subround_empty_launch" if empty else "subround_launch"
     LIB.call(fn, arr, b, c, s, f, j, ctypes.c_void_p(stream))

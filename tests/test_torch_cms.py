@@ -30,16 +30,39 @@ DENSITIES = (0.0, 0.5, 1.0)
 BLOCKS = (32, 256)          # explicit, and the reference's default
 
 
-def make_case(seed, b, w, density, n=None, start=50):
+def make_case(seed, b, w, density, n=None, start=50, pattern=None,
+              tile=None):
     """Key hashes (uint32, with repeated keys), an int32 mask and a
-    nonzero starting sketch; ``n`` adds a leading sketch axis."""
+    nonzero starting sketch; ``n`` adds a leading sketch axis.
+    ``pattern`` replaces the random mask: "tile_end" masks one lane, the
+    last of the second tile of ``tile`` lanes (of the first where there is
+    one), and "one_tile" every lane of that tile and no other."""
     rng = np.random.default_rng(seed)
     keys = rng.integers(0, 2 * b + 4, b).astype(np.int32)
     hk = np.asarray(jax_hash(jnp.asarray(keys)))
     lead = () if n is None else (n,)
     mask = (rng.random(lead + (b,)) < density).astype(np.int32)
     counts = rng.integers(0, start + 1, lead + (5, w)).astype(np.int32)
+    if pattern is not None:
+        t0 = tile if b > tile else 0
+        t1 = min(t0 + tile, b)
+        mask[:] = 0
+        if pattern == "tile_end":
+            mask[..., t1 - 1] = 1
+        else:
+            mask[..., t0:t1] = 1
     return hk, mask, counts
+
+
+# (b, w, density or mask pattern, block_b, n): the cases aimed at the
+# kernel's list of masked lanes and its 16-byte copies: widths not a
+# multiple of 4 (and 1,000), one lane past the rack's 1,408, one masked
+# lane at the end of a tile, one tile wholly masked and the others not
+TARGETED = ([(b, w, p, blk, n) for b in (257, 1409) for w in (1000, 2047)
+             for p in (1 / 32, 1.0) for blk in (32, 256) for n in (None, 4)]
+            + [(b, w, pat, blk, n) for pat in ("tile_end", "one_tile")
+               for b in (7, 600, 1409) for w in (64, 2047)
+               for blk in (32, 256) for n in (None, 4)])
 
 
 def jax_cms(hk, mask, counts, block_b, backend):
@@ -109,6 +132,15 @@ def test_cms_server_axis_matches_jax_vmap(n, b, block_b):
     check(hk, mask, counts, block_b, "ref", f"n={n} b={b}")
 
 
+@pytest.mark.parametrize("b,w,p,block_b,n", TARGETED[::6])
+def test_cms_targeted_matches_jax_ref(b, w, p, block_b, n):
+    pat = p if isinstance(p, str) else None
+    hk, mask, counts = make_case(b + w, b, w, 0.0 if pat else p, n=n,
+                                 pattern=pat,
+                                 tile=ops.tile_for(b, block_b))
+    check(hk, mask, counts, block_b, "ref", f"b={b} w={w} p={p} n={n}")
+
+
 def test_cms_server_axis_matches_jax_vmap_interpret():
     hk, mask, counts = make_case(9, 300, 64, 0.5, n=4)
     check(hk, mask, counts, 256, "interpret", "n=4 b=300")
@@ -138,7 +170,14 @@ def test_kernel_refuses_a_sketch_over_shared_memory():
     before anything is built or launched."""
     with pytest.raises(ValueError, match="shared memory"):
         cms_kernel.launch(0, 0, 0, 0, 0, 1, 8, 20_000, 8, 0)
-    assert cms_kernel.smem_bytes(2048) <= 232_448
+    wmax = cms_kernel.max_width()
+    with pytest.raises(ValueError, match="shared memory"):
+        cms_kernel.launch(0, 0, 0, 0, 0, 1, 8, wmax + 1, 8, 0)
+    assert cms_kernel.smem_bytes(wmax, 1) <= 232_448
+    # the rack's sketches beside its whole batch, and the widest batch
+    assert cms_kernel.unit_lanes(1408, 2048) >= 1408
+    assert cms_kernel.smem_bytes(2048, 1408) <= 232_448
+    assert cms_kernel.smem_bytes(2048, 100_000) <= 232_448
 
 
 @pytest.mark.cuda
@@ -150,8 +189,16 @@ def test_cuda_kernel_matches_plain_version():
     cases = [(b, w, p, blk, None) for b in BATCHES for w in WIDTHS
              for p in DENSITIES for blk in BLOCKS]
     cases += [(1408, 2048, 0.05, 256, 32), (257, 64, 0.5, 32, 4)]
+    cases += TARGETED + [(1409, 2048, p, 256, n) for p in (1 / 32, 0.5)
+                         for n in (None, 32)]
+    # tiles longer than the kernel's list: past 4,096 lanes, and beside a
+    # sketch that leaves room for 512 lanes only
+    cases += [(5000, 64, 0.5, 5000, None), (1000, 10500, 0.5, 1000, 2),
+              (1000, 10500, 0.5, 256, 2)]
     for i, (b, w, p, blk, n) in enumerate(cases):
-        hk, mask, counts = make_case(i, b, w, p, n=n)
+        pat = p if isinstance(p, str) else None
+        hk, mask, counts = make_case(i, b, w, 0.0 if pat else p, n=n,
+                                     pattern=pat, tile=ops.tile_for(b, blk))
         hk_t = torch.from_numpy(hk.view(np.int32)).cuda()
         m_t, c_t = torch.from_numpy(mask).cuda(), \
             torch.from_numpy(counts).cuda()

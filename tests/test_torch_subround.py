@@ -48,6 +48,39 @@ def case(seed, b, c, s, f, budget=None):
     return args, [np.asarray(a) for a in args]
 
 
+# (b, c, s, f, j) of the cases aimed at the kernel's parallel admission and
+# its match: one entry wanted by every lane, across every warp of the
+# block (and, past 512 lanes, across its rounds), and duplicate occupied
+# entries, which ``pop`` counts each and ``cidx`` takes the first of
+TARGETED_SHAPES = ((33, 8, 4, 1, 4), (64, 16, 8, 4, 8), (352, 128, 8, 1, 8),
+                   (1000, 128, 8, 1, 8), (4096, 128, 8, 1, 8))
+
+
+def targeted_case(seed, b, c, s, f, one_key=False, dup=False, budget=None):
+    """(jax args, numpy args) of a fuzz case reshaped: ``one_key`` makes
+    every lane want entry 0, valid and occupied; ``dup`` copies the key of
+    one entry onto another for a quarter of the entries, all occupied."""
+    _, nargs = case(seed, b, c, s, f, budget)
+    nargs = [np.array(a) for a in nargs]
+    rng = np.random.default_rng(seed + 1)
+    hk, want, thk, occ, stv = (nargs[i] for i in (0, 1, 12, 13, 14))
+    if dup:
+        n = max(1, c // 4)
+        src, dst = rng.integers(0, c, n), rng.integers(0, c, n)
+        thk[dst] = thk[src]
+        occ[src], occ[dst] = 1, 1
+    if one_key:
+        hk[:] = thk[0]
+        want[:] = 1
+        occ[0], stv[0] = 1, 1
+    return [jnp.asarray(a) for a in nargs], nargs
+
+
+TARGETED = [(shp, kw) for shp in TARGETED_SHAPES[:4]
+            for kw in (dict(one_key=True), dict(dup=True),
+                       dict(one_key=True, dup=True))]
+
+
 def to_port(np_args, device="cpu"):
     return [from_numpy(a, torch.device(device), n)
             for a, n in zip(np_args, _ARG_NAMES)]
@@ -57,8 +90,8 @@ _jax_ref = jax.jit(jax_subround_ref,
                    static_argnames=("queue_size", "max_frags", "max_serves"))
 
 
-def check_against_jax(seed, b, c, s, f, j, budget=None):
-    jargs, nargs = case(seed, b, c, s, f, budget)
+def check_against_jax(seed, b, c, s, f, j, budget=None, args=None):
+    jargs, nargs = args or case(seed, b, c, s, f, budget)
     want = RefOuts(*_jax_ref(*jargs, queue_size=s, max_frags=f,
                              max_serves=j))
     got = SubroundOuts(*subround_ref(*to_port(nargs), queue_size=s,
@@ -77,6 +110,32 @@ def test_subround_ref_matches_jax_fuzz(i):
 @pytest.mark.parametrize("b,c,s,f,j,budget", FIXED_SHAPES)
 def test_subround_ref_matches_jax_shapes(b, c, s, f, j, budget):
     check_against_jax(7 * b + c, b, c, s, f, j, budget)
+
+
+@pytest.mark.parametrize("shape,kw", TARGETED)
+def test_subround_ref_matches_jax_targeted(shape, kw):
+    b, c, s, f, j = shape
+    seed = 11 * b + c
+    check_against_jax(seed, b, c, s, f, j,
+                      args=targeted_case(seed, b, c, s, f, **kw))
+
+
+def test_targeted_cases_reach_their_edges():
+    """The targeted cases do what they are for: every lane of a one-key
+    case hits entry 0 and wants it, and a duplicate case's ``pop`` counts
+    a lane once per occupied copy of its key."""
+    b, c, s, f, j = TARGETED_SHAPES[2]
+    _, nargs = targeted_case(3, b, c, s, f, one_key=True)
+    out = SubroundOuts(*subround_ref(*to_port(nargs), queue_size=s,
+                                     max_frags=f, max_serves=j))
+    assert int(out.hit.sum()) == b and int(out.pop[0]) >= b
+    assert int(out.accepted.sum()) + int(out.overflow.sum()) == b
+    _, nargs = targeted_case(3, b, c, s, f, one_key=True, dup=True)
+    out = SubroundOuts(*subround_ref(*to_port(nargs), queue_size=s,
+                                     max_frags=f, max_serves=j))
+    thk = nargs[12]
+    copies = int((thk == thk[0]).all(axis=1).sum())
+    assert copies >= 1 and int(out.pop.sum()) == b * copies
 
 
 def test_wrapper_runs_plain_version_on_cpu():
@@ -112,8 +171,20 @@ def test_cuda_kernel_matches_plain_version():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
     from repro_torch import kernels as kn
     shapes = [sh[:5] + (None,) for sh in SUBROUND_SHAPES] + list(FIXED_SHAPES)
-    for i, (b, c, s, f, j, budget) in enumerate(shapes * 4):
-        _, nargs = case(100 + i, b, c, s, f, budget)
+    cases = [(sh, case(100 + i, *sh[:4], sh[5])[1])
+             for i, sh in enumerate(shapes * 4)]
+    # the targeted cases, and B = 33, 1,000 and 4,096 with full queues
+    cases += [(sh + (None,), targeted_case(200 + i, *sh[:4], **kw)[1])
+              for i, sh in enumerate(TARGETED_SHAPES)
+              for kw in (dict(one_key=True), dict(dup=True),
+                         dict(one_key=True, dup=True))]
+    for i, sh in enumerate(TARGETED_SHAPES):
+        _, nargs = case(300 + i, *sh[:4], 3)
+        nargs = [np.array(a) for a in nargs]
+        nargs[22][:] = sh[2]                          # qlen: every queue full
+        nargs[24][:] = nargs[23]                      # rear = front
+        cases.append((sh + (3,), nargs))
+    for (b, c, s, f, j, _), nargs in cases:
         args = to_port(nargs, "cuda")
         before = kn.LAUNCHES["subround"]
         got = subround_op(*args, s, f, j)
@@ -130,4 +201,6 @@ def test_kernel_refuses_shapes_over_shared_memory():
     from repro_torch.kernels.subround import kernel
     with pytest.raises(ValueError, match="shared memory"):
         kernel.launch([], 60_000, 128, 8, 1, 8, 0)
-    assert kernel.smem_bytes(352, 128, 8, 1) <= kernel.MAX_SMEM_BYTES
+    assert kernel.smem_bytes(60_000, 128, 8, 1) > kernel.MAX_SMEM_BYTES
+    for b in (352, 4096):          # the path's batch and the largest checked
+        assert kernel.smem_bytes(b, 128, 8, 1) <= kernel.MAX_SMEM_BYTES
