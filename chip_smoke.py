@@ -3,25 +3,30 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --against DIR
 
-``--against DIR`` only times ``subround`` and ``cms`` built from
-``DIR/subround.cu`` and ``DIR/cms.cu`` (another version of each, such as
-a parent commit's, extracted with ``git show``) against the tree's, in
-turns, and prints no result line.  With no argument, the phases, each
-printed on its own line; any failure exits non-zero:
+``--against DIR`` only times the four kernels built from
+``DIR/{subround,cms,hot_gather,orbit_match}.cu`` (another version of each,
+such as a parent commit's, extracted with ``git show``) against the
+tree's, in turns, each first held against its plain version (``hot_gather``
+also on the inputs of one control-plane period), and prints no result
+line.  With no argument, the phases, each printed on its own
+line; any failure exits non-zero:
 
 1. device: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: ``nvcc`` compiles the four kernels for sm_90a, one process per
    source, all started together (``kernels/{subround,cms,hot_gather,
    orbit_match}/kernel.cu``), and prints ``ptxas``'s report for each;
-3. each kernel against its plain version on the card over fuzz cases and
-   the shapes of the paper's rack (exactly; bf16 ``hot_gather`` rows
-   within rtol = atol = 2e-2), then its times: ``device_us``, the device
+3. each kernel against its plain version on the card over fuzz cases,
+   the shapes of the paper's rack and cases aimed at its design (exactly;
+   bf16 ``hot_gather`` rows within rtol = atol = 2e-2, float32 rows with
+   several matches a lane within 1e-6), then its times: ``device_us``, the
+   device
    time per launch (1,000 launches captured in a CUDA graph, replays timed
    with CUDA events) and ``device_floor_us``, an empty kernel with the same
    grid timed the same way; ``ms``, CUDA events around 1,000 direct
    launches, and ``host_issue_ms``, the empty kernel read that way (the
    host's cost of issuing a call, which ``ms`` reads wherever the kernel is
-   faster than it); the wrapper's and the plain version's ms;
+   faster than it); the wrapper's and the plain version's ms; for
+   ``hot_gather``, the library's two calls beside it, read both ways;
 4. main path at the paper's scale (``configs/orbitcache_paper.py``: 10M
    keys, C = 128, 32 servers, 4M rps offered): preload the 128 hottest
    keys, run 1,000 windows through ``RackSimulator.run``, check that every
@@ -34,7 +39,10 @@ printed on its own line; any failure exits non-zero:
    phases 2 and 3, the cadence of Fig. 18.  Every window must launch 4
    subround kernels and 1 count-min kernel, every period 3 hot_gather
    kernels, and no plain version may run; the replay under the plain
-   versions must equal it in every carry leaf, metric and period update;
+   versions must equal it in every carry leaf, metric and period update.
+   Then one period from the start again, recording the three input sets
+   of its ``_merge_scores`` call; each is held against the plain version
+   and timed (``hot_gather_live``);
 6. ``orbit_match``, which no simulator path calls, through its own entry
    point ``kernels.orbit_match``: against its plain version over fuzz
    cases and on the paper rack's table after the preload against one
@@ -435,11 +443,18 @@ def time_cms(dev):
 # --------------------------------------------------------------------------
 # the controller's three calls per period: (ids, hot ids, D)
 HG_CALLS = ((128, 2048, 1), (2048, 2048, 1), (2048, 128, 1))
+F32_TOL = 1e-6   # float32 rows, several matches a lane: the sum's order
+# (ids, hot ids) of the cases aimed at the kernel's hash table
+HG_TABLE_SIZES = ((1, 1), (300, 200), *[(b, c) for b, c, _ in HG_CALLS])
 
 
-def hg_case(seed, b, c, d, dtype, distinct, dev):
+def hg_case(seed, b, c, d, dtype, distinct, dev, hot_kind=None):
     """(ids, hot, rows) on ``dev``: ids with misses and the -3 sentinel,
-    hot ids repeated (unless ``distinct``) with -1 and -2 sentinels."""
+    hot ids repeated (unless ``distinct``) with -1 and -2 sentinels.
+    ``hot_kind`` replaces the hot ids: "sentinel90" / "sentinel100" make
+    90 % / all of them -2 (some ids ask for -2 too), "equal" makes them
+    one id that half the lanes ask for, "multi" draws them from c // 8
+    ids, several matches a lane."""
     rng = np.random.default_rng(seed)
     universe = 2 * c + 4
     if distinct:
@@ -451,6 +466,17 @@ def hg_case(seed, b, c, d, dtype, distinct, dev):
         hot[rng.random(c) < 0.05] = -1
     ids = rng.integers(0, universe, b).astype(np.int32)
     ids[rng.random(b) < 0.1] = -3
+    if hot_kind in ("sentinel90", "sentinel100"):
+        share = 0.9 if hot_kind == "sentinel90" else 1.0
+        hot = rng.choice(universe, c, replace=False).astype(np.int32)
+        hot[rng.permutation(c)[:int(round(share * c))]] = -2
+        ids[rng.random(b) < 0.05] = -2
+    elif hot_kind == "equal":
+        hot[:] = 7
+        ids[rng.random(b) < 0.5] = 7
+    elif hot_kind == "multi":
+        hot = rng.integers(0, max(1, c // 8), c).astype(np.int32)
+        ids = rng.integers(-1, max(1, c // 8) + 1, b).astype(np.int32)
     rows = (rng.integers(-1000, 1000, (c, d)).astype(np.int32)
             if dtype == torch.int32
             else rng.normal(size=(c, d)).astype(np.float32))
@@ -458,72 +484,128 @@ def hg_case(seed, b, c, d, dtype, distinct, dev):
     return [ids, hot, rows.to(dtype)]
 
 
-def check_hot_gather(dev):
-    from repro_torch.kernels.hot_gather.ops import hot_gather
-    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
-
+def hg_cases():
+    """(b, c, d, dtype, distinct, hot_kind) of every on-card case: the
+    fuzz grid and the controller's shapes, then the cases aimed at the hash
+    table (sentinel-dense and all-equal hot vectors, several float32
+    matches a lane at D = 64, more hot ids than one table holds)."""
     sizes = [(b, c, d) for b in (1, 128, 300) for c in (1, 128, 200)
              for d in (1, 3, 64)] + list(HG_CALLS)
-    cases = [(sz, dt, dist) for sz in sizes
+    cases = [(b, c, d, dt, dist, None) for b, c, d in sizes
              for dt, dist in ((torch.int32, False), (torch.float32, True),
                               (torch.bfloat16, True),
                               (torch.bfloat16, False))]
-    max_err = {"exact": 0.0, "bf16": 0.0}
-    for i, ((b, c, d), dt, dist) in enumerate(cases):
-        args = hg_case(i, b, c, d, dt, dist, dev)
+    cases += [(b, c, d, dt, False, kind) for b, c in HG_TABLE_SIZES
+              for kind in ("sentinel90", "sentinel100", "equal")
+              for d in (1, 3) for dt in (torch.int32, torch.bfloat16)]
+    cases += [(b, c, 64, dt, False, "multi")
+              for b, c in ((1, 8), (128, 200), (300, 2048), (2048, 128))
+              for dt in (torch.float32, torch.int32, torch.bfloat16)]
+    # more hot ids than one of the kernel's tables holds (kernel.CHUNK)
+    cases += [(b, c, d, dt, dist, kind)
+              for b, c, d in ((300, 4097, 3), (2048, 9000, 1))
+              for dt, dist, kind in (
+                  (torch.float32, False, "multi"), (torch.int32, False, None),
+                  (torch.int32, False, "equal"),
+                  (torch.bfloat16, False, "sentinel90"),
+                  (torch.float32, True, None))]
+    return cases
+
+
+def check_hot_gather(dev):
+    """Every case of :func:`hg_cases` against the plain version: int32 and
+    hit exactly, float32 within F32_TOL (exact where the hot ids are
+    distinct), bf16 within BF16_TOL."""
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+
+    cases = hg_cases()
+    max_err = {"exact": 0.0, "f32": 0.0, "bf16": 0.0}
+    for i, (b, c, d, dt, dist, kind) in enumerate(cases):
+        args = hg_case(i, b, c, d, dt, dist, dev, kind)
         got = hot_gather(*args)
         want = hot_gather_ref(*args)
         torch.cuda.synchronize()
         for name, g, w in zip(("out", "hit"), got, want):
-            bf16 = g.dtype == torch.bfloat16
+            if g.dtype == torch.bfloat16:
+                key, tol = "bf16", BF16_TOL
+            elif g.dtype == torch.float32 and not dist:
+                key, tol = "f32", F32_TOL
+            else:
+                key, tol = "exact", 0.0
             err = max_abs_err(g, w)
-            key = "bf16" if bf16 else "exact"
             max_err[key] = max(max_err[key], err)
-            ok = (torch.allclose(g.float(), w.float(), rtol=BF16_TOL,
-                                 atol=BF16_TOL) if bf16
-                  else torch.equal(g, w))
+            ok = (torch.equal(g, w) if key == "exact" else torch.allclose(
+                g.float(), w.float(), rtol=tol, atol=tol))
             if not ok:
                 raise AssertionError(f"hot_gather kernel != plain version at "
-                                     f"{name} (b={b} c={c} d={d} {dt}, "
-                                     f"max abs err {err})")
+                                     f"{name} (b={b} c={c} d={d} {dt} "
+                                     f"{kind}, max abs err {err})")
     return len(cases), max_err
 
 
-def time_hot_gather(dev):
-    """ms per launch at the controller's three call shapes (int32 rows,
-    repeated hot ids); the kernels line takes the largest.  For float32
-    and bf16 rows, the kernel beside the library's two calls
-    ``(ids[:, None] == hot[None, :]).to(rows.dtype) @ rows``."""
+def hg_kernel_times(ids, hot, rows):
+    """:func:`kernel_times` of one hot_gather input set."""
     from repro_torch.kernels.hot_gather import kernel
     from repro_torch.kernels.hot_gather.ops import hot_gather
     from repro_torch.kernels.hot_gather.ref import hot_gather_ref
 
+    (b,), (c, d) = ids.shape, rows.shape
+    out, hit = hot_gather(ids, hot, rows)
+    ptrs = (ids.data_ptr(), hot.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            hit.data_ptr())
+    return kernel_times(
+        lambda st: kernel.launch(*ptrs, b, c, d, rows.dtype, st),
+        lambda st: kernel.launch(*ptrs, b, c, d, rows.dtype, st, empty=True),
+        lambda: hot_gather(ids, hot, rows),
+        lambda: hot_gather_ref(ids, hot, rows))
+
+
+def hg_bound(ids, hot, rows):
+    """The least time of one call: inputs once, outputs once; the work of
+    a table of the hot ids: an insert per hot id, a probe per (id,
+    column) and an add per match and column."""
+    (b,), (c, d) = ids.shape, rows.shape
+    matches = int((ids[:, None] == hot[None, :]).sum())
+    nbytes = 4 * (b + c + b) + rows.element_size() * (c * d + b * d)
+    return bound(nbytes, c + b * d + matches * d)
+
+
+def time_hot_gather(dev, yardsticks=True):
+    """Times per launch at the controller's three call shapes, on int32
+    rows and distinct hot ids, as the controller's inputs are (each lane
+    matches at most once); the kernels line takes the largest.  With
+    ``yardsticks``, the kernel's device time on repeated hot ids as well
+    (several matches a lane, walked in ascending c), and for float32 and
+    bf16 rows (distinct hot ids) the kernel's device time and the
+    wrapper's ms beside the library's two calls ``(ids[:, None] ==
+    hot[None, :]).to(rows.dtype) @ rows``, read both ways: events around
+    direct calls (``_ms``, which include the host's issue cost) and the
+    device alone (``_device_us``, the two calls captured in a CUDA
+    graph)."""
     calls = []
     for b, c, d in HG_CALLS:
-        ids, hot, rows = hg_case(b + c, b, c, d, torch.int32, False, dev)
-        out, hit = hot_gather(ids, hot, rows)
-        ptrs = (ids.data_ptr(), hot.data_ptr(), rows.data_ptr(),
-                out.data_ptr(), hit.data_ptr())
-        times = kernel_times(
-            lambda st: kernel.launch(*ptrs, b, c, d, rows.dtype, st),
-            lambda st: kernel.launch(*ptrs, b, c, d, rows.dtype, st,
-                                     empty=True),
-            lambda: hot_gather(ids, hot, rows),
-            lambda: hot_gather_ref(ids, hot, rows))
-        # inputs once, outputs once; a compare per (id, hot id) and an add
-        # per match and column
-        matches = int((ids[:, None] == hot[None, :]).sum())
-        nbytes = 4 * (b + c + c * d + b * d + b)
-        by_type = {}
-        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            f_ids, f_hot, f_rows = hg_case(b + c, b, c, d, dt, True, dev)
-            by_type[f"wrapper_{tag}_ms"] = timed(
-                lambda: hot_gather(f_ids, f_hot, f_rows))
-            by_type[f"library_{tag}_two_calls_ms"] = timed(
-                lambda: (f_ids[:, None] == f_hot[None, :]).to(f_rows.dtype)
-                @ f_rows)
-        calls.append(dict(shape=dict(b=b, c=c, d=d), **times, **by_type,
-                          **bound(nbytes, b * c + matches * d)))
+        ids, hot, rows = hg_case(b + c, b, c, d, torch.int32, True, dev)
+        rec = dict(shape=dict(b=b, c=c, d=d),
+                   **hg_kernel_times(ids, hot, rows))
+        if yardsticks:
+            rec["kernel_int32_repeated_device_us"] = hg_kernel_times(
+                *hg_case(b + c, b, c, d, torch.int32, False, dev))[
+                    "device_us"]
+            for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                f_ids, f_hot, f_rows = hg_case(b + c, b, c, d, dt, True, dev)
+                t = hg_kernel_times(f_ids, f_hot, f_rows)
+
+                def two_calls(_stream=None):
+                    return (f_ids[:, None] == f_hot[None, :]).to(
+                        f_rows.dtype) @ f_rows
+                rec[f"kernel_{tag}_device_us"] = t["device_us"]
+                rec[f"wrapper_{tag}_ms"] = t["wrapper_ms"]
+                rec[f"library_{tag}_two_calls_ms"] = timed(two_calls)
+                rec[f"library_{tag}_two_calls_device_us"] = device_timed(
+                    two_calls)[0]
+            rec.update(hg_bound(ids, hot, rows))
+        calls.append(rec)
     return calls
 
 
@@ -540,13 +622,16 @@ OM_FLAGS = np.array([-1, 0, 1, 2], np.int32)
 def om_case(seed, b, c, dup, mask, dev):
     """(hkey, table, occupied, valid, pop_mask) on ``dev``: int32 hash
     words, flags from {-1, 0, 1, 2} (true only where > 0), lanes that
-    mostly hit; ``dup`` copies a quarter of the entries onto others (some
-    copies unoccupied); ``mask`` is "none", "sparse" or "zero"."""
+    mostly hit; ``dup`` True copies a quarter of the entries onto others
+    (some copies unoccupied), "all" fills the table with copies of four
+    keys; ``mask`` is "none", "sparse" or "zero"."""
     from repro_torch.core.hashing import hash128_u32_np
     rng = np.random.default_rng(seed)
     universe = 2 * c + 4
     keys = rng.choice(universe, c, replace=False).astype(np.int32)
-    if dup:
+    if dup == "all":
+        keys = keys[rng.integers(0, min(4, c), c)]
+    elif dup:
         n = max(1, c // 4)
         keys[rng.integers(0, c, n)] = keys[rng.integers(0, c, n)]
     occ, valid = rng.choice(OM_FLAGS, c), rng.choice(OM_FLAGS, c)
@@ -583,6 +668,7 @@ def live_match_inputs(sim):
 
 
 def check_orbit_match(dev, live):
+    from repro_torch.kernels.orbit_match.kernel import CHUNK, CLUSTER_LANES
     from repro_torch.kernels.orbit_match.ops import orbit_match
     from repro_torch.kernels.orbit_match.ref import orbit_match_ref
 
@@ -591,6 +677,17 @@ def check_orbit_match(dev, live):
     cases = [(b_live if b is None else b, c, dup, mask)
              for b in OM_LANES for c in OM_ENTRIES for dup in (False, True)
              for mask in ("none", "sparse", "zero")]
+    # past one cluster's lanes (the threads loop), at one chunk of entries
+    # and past it (three passes over the table), and tables of nothing but
+    # duplicates
+    cases += [(b, c, dup, mask)
+              for b, c in ((CLUSTER_LANES + 1808, 128), (b_live, CHUNK),
+                           (b_live, 2 * CHUNK + 808),
+                           (CLUSTER_LANES + 1808, 2 * CHUNK + 808),
+                           (1025, 16), (2048, 1024))
+              for dup in (False, True, "all") for mask in ("none", "sparse")]
+    cases += [(b, c, "all", mask) for b in (b_live, 31) for c in (1, 128, 130)
+              for mask in ("none", "sparse", "zero")]
     inputs = [om_case(i, b, c, dup, mask, dev)
               for i, (b, c, dup, mask) in enumerate(cases)]
     cases += [("live", r) for r in range(len(lanes))]
@@ -608,6 +705,42 @@ def check_orbit_match(dev, live):
     return len(cases), max_err
 
 
+def om_work(hkey, thk, occ, mask):
+    """(bytes, operations) of one call: inputs once, outputs once; the
+    work of entries grouped into 256 buckets by their first word's top
+    byte: two per entry (its count and its place), a first-word compare
+    per (lane, entry of the lane's bucket), an occupancy test and three
+    word compares per (lane, entry) whose first words agree, an add per
+    counted match."""
+    b, c = hkey.shape[0], thk.shape[0]
+    nbytes = 4 * (4 * b + 4 * c + 2 * c + b + 3 * b + c)
+    top = lambda w: (w >> 24) & 0xFF
+    per_bucket = torch.bincount(top(thk[:, 0]).long(), minlength=256)
+    bucket_compares = int(per_bucket[top(hkey[:, 0]).long()].sum())
+    first = hkey[:, None, 0] == thk[None, :, 0]
+    match = ((hkey[:, None, :] == thk[None, :, :]).all(dim=-1)
+             & (occ > 0)[None, :] & (mask > 0)[:, None])
+    return nbytes, (2 * c + bucket_compares + 4 * int(first.sum())
+                    + int(match.sum()))
+
+
+def time_orbit_match(dev):
+    """:func:`kernel_times` of the kernel on one synthetic input set of
+    the paper rack's shape (352 lanes, 128 entries, sparse mask)."""
+    from repro_torch.kernels.orbit_match import kernel
+    from repro_torch.kernels.orbit_match.ops import orbit_match
+    from repro_torch.kernels.orbit_match.ref import orbit_match_ref
+
+    args = om_case(7, 352, 128, False, "sparse", dev)
+    outs = orbit_match(*args)
+    ptrs = [a.data_ptr() for a in (*args, *outs)]
+    return dict(shape=dict(b=352, c=128), **kernel_times(
+        lambda st: kernel.launch(*ptrs, 352, 128, st),
+        lambda st: kernel.launch(*ptrs, 352, 128, st, empty=True),
+        lambda: orbit_match(*args),
+        lambda: orbit_match_ref(*args)))
+
+
 def run_orbit_match(dev, live):
     """The orbit_match phase (module docstring, phase 6).  Returns the
     kernels-line numbers."""
@@ -622,22 +755,12 @@ def run_orbit_match(dev, live):
     b, c = hkey.shape[0], thk.shape[0]
     outs = orbit_match(hkey, thk, occ, val, mask)
     ptrs = [a.data_ptr() for a in (hkey, thk, occ, val, mask, *outs)]
-    # each launch zeroes `pop` on its stream first, the empty one too
     times = kernel_times(
         lambda st: kernel.launch(*ptrs, b, c, st),
         lambda st: kernel.launch(*ptrs, b, c, st, empty=True),
         lambda: orbit_match(hkey, thk, occ, val, mask),
         lambda: orbit_match_ref(hkey, thk, occ, val, mask))
-    # inputs once, outputs once; the operations the kernel's compare chain
-    # does on these inputs: an occupancy test per (lane, entry), then words
-    # compared until the first that differs, and an add per counted match
-    nbytes = 4 * (4 * b + 4 * c + 2 * c + b + 3 * b + c)
-    occupied = (occ > 0)[None, :]
-    same = (hkey[:, None, :] == thk[None, :, :]).to(torch.int32).cumprod(
-        dim=-1).bool()               # words 0..w all equal
-    n_ops = (b * c + b * int(occupied.sum())
-             + sum(int((same[..., w] & occupied).sum()) for w in range(3))
-             + int((same[..., 3] & occupied & (mask > 0)[:, None]).sum()))
+    nbytes, n_ops = om_work(hkey, thk, occ, mask)
 
     # its own entry point, one call per subround of the window, counted
     with counting_plain_versions() as plain_calls:
@@ -821,12 +944,10 @@ def run_main_path(dev):
     return launches, live
 
 
-def run_control_plane(dev):
-    """The periodic control plane at the paper's scale (module docstring,
-    phase 5).  Returns the launches of each kernel in the run."""
-    from repro_torch import kernels as kn
+def control_plane_rack(dev):
+    """The paper's rack with the servers' popularity tracking on and its
+    hottest keys preloaded: ``(simulator, workload, windows a period)``."""
     from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
-    from repro_torch.interop import to_numpy
     from repro_torch.kvstore.simulator import RackSimulator
     from repro_torch.kvstore.workload import Workload
 
@@ -834,6 +955,17 @@ def run_control_plane(dev):
     wl = Workload(WORKLOAD, device=dev)
     sim = RackSimulator(rack, wl)
     sim.preload(wl.hottest_keys(rack.cache_entries))
+    return sim, wl, int(round(CP_PERIOD_S / (rack.window_us * 1e-6)))
+
+
+def run_control_plane(dev):
+    """The periodic control plane at the paper's scale (module docstring,
+    phase 5).  Returns the launches of each kernel in the run."""
+    from repro_torch import kernels as kn
+    from repro_torch.interop import to_numpy
+
+    sim, wl, period_w = control_plane_rack(dev)
+    rack = sim.cfg
     start = clone_tree(sim.carry)
     gen_state = sim.carry.draws.get_state()
     act0, perm0 = sim.controller.active_size, wl._perm_np.copy()
@@ -857,7 +989,6 @@ def run_control_plane(dev):
         wl._perm_np[:] = perm0
         wl.perm = torch.from_numpy(perm0.copy()).to(dev)
 
-    period_w = int(round(CP_PERIOD_S / (rack.window_us * 1e-6)))
     n_win = CP_PHASES * int(round(CP_PHASE_S / (rack.window_us * 1e-6)))
     n_periods = n_win // period_w
     want = {"subround": rack.subrounds * n_win, "cms": n_win,
@@ -958,7 +1089,54 @@ def run_control_plane(dev):
               wall_ms_per_window=wall * 1e3 / n_win,
               profiled_wall_ms_per_window=prof_wall * 1e3 / period_w,
               device_idle_share=1 - busy / (wall * 1e3 / n_win))
+    rewind()
+    run_hot_gather_live(sim, period_w)
     return launches
+
+
+def merge_inputs(sim, period_w):
+    """The three ``(ids, hot, rows)`` input sets of one period's
+    ``_merge_scores``, recorded through its dispatcher as ``sim`` runs the
+    period."""
+    from repro_torch import kernels as kn
+
+    recorded, real = [], kn.hot_gather
+
+    def record(*args):
+        recorded.append([a.clone() for a in args])
+        return real(*args)
+
+    kn.hot_gather = record
+    try:
+        sim.run_periods(1, period_w)
+    finally:
+        kn.hot_gather = real
+    if len(recorded) != 3:
+        raise AssertionError(f"{len(recorded)} hot_gather calls in a period")
+    return recorded
+
+
+def run_hot_gather_live(sim, period_w):
+    """The three input sets of one period's ``_merge_scores`` (recorded
+    from a period of the live carry), each held against the plain version
+    and timed."""
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+
+    calls = []
+    for ids, hot, rows in merge_inputs(sim, period_w):
+        got, want = hot_gather(ids, hot, rows), hot_gather_ref(ids, hot, rows)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"hot_gather kernel != plain version on the "
+                                 f"live inputs {tuple(ids.shape)} x "
+                                 f"{tuple(hot.shape)}")
+        calls.append(dict(
+            shape=dict(b=ids.shape[0], c=hot.shape[0], d=rows.shape[1]),
+            hot_sentinels=int((hot == -2).sum()),
+            id_sentinels=int((ids == -3).sum()), hits=int(got[1].sum()),
+            **hg_kernel_times(ids, hot, rows), **hg_bound(ids, hot, rows)))
+    phase("hot_gather_live", equal=True, calls=calls)
 
 
 def run_schemes(dev):
@@ -1054,42 +1232,73 @@ def run_schemes(dev):
 
 
 def time_against(dev, other_dir):
-    """``--against DIR``: time ``subround`` and ``cms`` built from
-    ``DIR/subround.cu`` and ``DIR/cms.cu`` (other versions of the two
-    kernels with the same C interface, such as a parent commit's) against
-    the tree's, in turns (other, tree, tree, other) on one card, by the
-    same timers as the full run; each version is first held against the
-    plain version at the timed shape."""
+    """``--against DIR``: time the four kernels built from
+    ``DIR/{subround,cms,hot_gather,orbit_match}.cu`` (other versions with
+    the same C interfaces, such as a parent commit's) against the tree's,
+    in turns (other, tree, tree, other) on one card, by the same timers as
+    the full run: ``subround`` and ``cms`` at the paper rack's shapes,
+    ``hot_gather`` at the controller's three call shapes and on the three
+    input sets of one control-plane period's ``_merge_scores`` (recorded
+    once, with the tree's kernels, from the paper rack after its preload),
+    ``orbit_match`` at 352 lanes against 128 entries.  Each version is
+    first held against the plain version at the timed inputs."""
     from pathlib import Path
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.cms import kernel as cms_kernel
     from repro_torch.kernels.cms.ops import update_query
     from repro_torch.kernels.cms.ref import cms_update_query_fast
+    from repro_torch.kernels.hot_gather import kernel as hg_kernel
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+    from repro_torch.kernels.orbit_match import kernel as om_kernel
+    from repro_torch.kernels.orbit_match.ops import orbit_match
+    from repro_torch.kernels.orbit_match.ref import orbit_match_ref
     from repro_torch.kernels.subround import kernel as sr_kernel
     from repro_torch.kernels.subround.ops import subround
     from repro_torch.kernels.subround.ref import subround_ref
+
+    def same(got, want):
+        return all(torch.equal(g, w) for g, w in zip(got, want))
 
     b, c, s, f, j = PAPER
     sr_args = [torch.from_numpy(np.array(a)).to(dev)
                for a in subround_case(7, b, c, s, f, budget=1000)]
     n, cb, w = CMS_PAPER
     cms_args = cms_case(7, n, cb, w, 1 / 32, dev)
+    hg_args = [hg_case(hb + hc, hb, hc, hd, torch.int32, True, dev)
+               for hb, hc, hd in HG_CALLS]
+    hg_live = []   # recorded once the kernels are built
+
+    def time_hg(d):
+        return time_hot_gather(d, yardsticks=False) + [
+            dict(shape=dict(b=ids.shape[0], c=hot.shape[0], d=rows.shape[1],
+                            live=True), **hg_kernel_times(ids, hot, rows))
+            for ids, hot, rows in hg_live]
+    om_args = om_case(7, 352, 128, False, "sparse", dev)
     checks = {
-        "subround": (sr_kernel, time_kernel, lambda: all(
-            torch.equal(g, x) for g, x in zip(
-                subround(*sr_args, s, f, j),
-                subround_ref(*sr_args, queue_size=s, max_frags=f,
-                             max_serves=j)))),
-        "cms": (cms_kernel, time_cms, lambda: all(
-            torch.equal(g, x) for g, x in zip(
-                update_query(*cms_args, 256),
-                cms_update_query_fast(*cms_args, block_b=256))))}
+        "subround": (sr_kernel, time_kernel, lambda: same(
+            subround(*sr_args, s, f, j),
+            subround_ref(*sr_args, queue_size=s, max_frags=f,
+                         max_serves=j))),
+        "cms": (cms_kernel, time_cms, lambda: same(
+            update_query(*cms_args, 256),
+            cms_update_query_fast(*cms_args, block_b=256))),
+        "hot_gather": (hg_kernel, time_hg,
+                       lambda: all(same(hot_gather(*a), hot_gather_ref(*a))
+                                   for a in hg_args + hg_live)),
+        "orbit_match": (om_kernel, time_orbit_match, lambda: same(
+            orbit_match(*om_args), orbit_match_ref(*om_args)))}
     others = {k: _build.KernelLibrary(k, Path(other_dir) / f"{k}.cu",
                                       mod.LIB.signatures)
               for k, (mod, _, _) in checks.items()}
     _build.build_all([mod.LIB for mod, _, _ in checks.values()]
                      + list(others.values()))
+    sim, _, period_w = control_plane_rack(dev)
+    hg_live += merge_inputs(sim, period_w)
+    del sim
+    keys = ("device_us", "device_floor_us", "device_timing", "ms",
+            "host_issue_ms")
     for k, (mod, timer, equal) in checks.items():
         tree, rows = mod.LIB, []
         try:
@@ -1098,9 +1307,9 @@ def time_against(dev, other_dir):
                 if not equal():
                     raise AssertionError(f"{k} ({tag}) != plain version")
                 t = timer(dev)
-                rows.append(dict(version=tag, **{x: t[x] for x in (
-                    "device_us", "device_floor_us", "device_timing", "ms",
-                    "host_issue_ms")}))
+                rows.append(dict(version=tag, calls=[
+                    {x: call[x] for x in ("shape", *keys) if x in call}
+                    for call in ([t] if isinstance(t, dict) else t)]))
         finally:
             mod.LIB = tree
         phase("against", kernel=k, other=str(others[k].source), turns=rows)
@@ -1172,8 +1381,12 @@ def main():
     n_cases, hg_err = check_hot_gather(dev)
     hg_calls = time_hot_gather(dev)
     phase("hot_gather_vs_plain", cases=n_cases, equal=True,
-          max_abs_err=hg_err["exact"], bf16_max_abs_err=hg_err["bf16"],
-          bf16_tolerance=dict(rtol=BF16_TOL, atol=BF16_TOL), calls=hg_calls)
+          max_abs_err=hg_err["exact"], f32_max_abs_err=hg_err["f32"],
+          f32_tolerance=dict(rtol=F32_TOL, atol=F32_TOL),
+          bf16_max_abs_err=hg_err["bf16"],
+          bf16_tolerance=dict(rtol=BF16_TOL, atol=BF16_TOL),
+          library_f32_device_us=hg_calls[1]["library_f32_two_calls_device_us"],
+          calls=hg_calls)
 
     main_launches, live = run_main_path(dev)
     om = run_orbit_match(dev, live)

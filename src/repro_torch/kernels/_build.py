@@ -112,12 +112,14 @@ def build_all(libs: list[KernelLibrary], verbose: bool = False,
     started together.  Returns ``(path, compiler output)`` per library and
     raises, naming the source, if any build fails."""
     out_dir = build_dir()
-    jobs = []
+    jobs, started = [], set()
     for kl in libs:
         lib = kl.path()
-        if lib.exists() and not verbose:
+        # a library already built, or being built for an identical source
+        if (lib.exists() and not verbose) or lib in started:
             jobs.append((kl, lib, None, None))
             continue
+        started.add(lib)
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f".{lib.name}.{os.getpid()}.tmp"
         proc = subprocess.Popen(kl._command(tmp, verbose),

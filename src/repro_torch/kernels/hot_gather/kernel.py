@@ -19,6 +19,7 @@ LIB = KernelLibrary("hot_gather", Path(__file__).with_name("kernel.cu"),
                      "hot_gather_empty_launch": _ARGS})
 # row types the kernel takes, by the code kernel.cu switches on
 DTYPES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
+CHUNK = 4096         # hot ids per shared-memory table (kChunk in kernel.cu)
 
 
 def launch(ids: int, hot: int, rows: int, out: int, hit: int, b: int,
@@ -27,7 +28,7 @@ def launch(ids: int, hot: int, rows: int, out: int, hit: int, b: int,
     """Launch on ``stream`` (device addresses of int32 ``ids[B]`` and
     ``hot[C]``, ``rows[C, D]`` and ``out[B, D]`` of ``dtype``, int32
     ``hit[B]``).  ``empty`` launches a kernel that does nothing, with the
-    same grid, to time the launch floor."""
+    same grid and shared memory, to time the launch floor."""
     fn = "hot_gather_empty_launch" if empty else "hot_gather_launch"
     LIB.call(fn, _P(ids), _P(hot), _P(rows), _P(out), _P(hit), b, c, d,
              DTYPES[dtype], _P(stream))

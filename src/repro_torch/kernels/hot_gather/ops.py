@@ -3,8 +3,9 @@
 On CUDA tensors it launches the Hopper kernel (``kernel.cu``) for int32,
 float32 and bf16 rows (bf16 sums in float32, rounded once); on CPU tensors
 it runs the plain version (``ref.hot_gather_ref``).  The reference pads
-ids, hot ids and rows to its TPU tiles; the kernel takes any B, C and D,
-so nothing is padded.
+ids, hot ids and rows to its TPU tiles; the kernel takes any B, C and D
+(its tables of hot ids, ``kernel.CHUNK`` ids each, live in shared
+memory), so nothing is padded.
 """
 from __future__ import annotations
 

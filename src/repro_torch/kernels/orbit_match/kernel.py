@@ -8,33 +8,28 @@ from __future__ import annotations
 import ctypes
 from pathlib import Path
 
-from .._build import MAX_SMEM_BYTES, KernelLibrary, check_smem
+from .._build import KernelLibrary
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 9 + [_I, _I, _P]
 LIB = KernelLibrary("orbit_match", Path(__file__).with_name("kernel.cu"),
                     {"orbit_match_launch": _ARGS,
                      "orbit_match_empty_launch": _ARGS})
-ENTRY_BYTES = 28     # four hash words, two flags and a count per entry
-
-
-def smem_bytes(c: int) -> int:
-    """Shared memory one block needs: the staged table and its counts."""
-    return ENTRY_BYTES * c
+CLUSTER_LANES = 8 * 1024   # lanes one pass of the largest launch covers
+CHUNK = 4096               # entries per pass over the table (kChunk in
+                           # kernel.cu)
 
 
 def launch(hkey: int, table: int, occ: int, valid: int, mask: int | None,
            cidx: int, hit: int, vhit: int, pop: int, b: int, c: int,
            stream: int, empty: bool = False) -> None:
-    """Zero ``pop`` and launch one thread per lane on ``stream`` (device
-    addresses of int32 ``hkey[B, 4]``, ``table[C, 4]``, ``occ[C]``,
-    ``valid[C]``, ``mask[B]`` (None: every lane counts), the outputs
-    ``cidx``, ``hit``, ``vhit`` [B] and ``pop[C]``).  ``empty`` launches a
-    kernel that does nothing, with the same zeroing, grid and shared
-    memory, to time the launch floor."""
-    check_smem(smem_bytes(c),
-               f"orbit_match kernel: a table of {c} entries (C must stay <= "
-               f"{MAX_SMEM_BYTES // ENTRY_BYTES})")
+    """Launch on ``stream``: one block of one thread per lane up to 1,024
+    lanes, else a cluster of up to 8 blocks of 1,024 (device addresses of
+    int32 ``hkey[B, 4]``, ``table[C, 4]``, ``occ[C]``, ``valid[C]``,
+    ``mask[B]`` (None: every lane counts), the outputs ``cidx``, ``hit``,
+    ``vhit`` [B] and ``pop[C]``, each written whole).  ``empty`` launches a
+    kernel that does nothing, with the same grid, cluster and shared
+    memory, to time the floor."""
     fn = "orbit_match_empty_launch" if empty else "orbit_match_launch"
     LIB.call(fn, _P(hkey), _P(table), _P(occ), _P(valid), _P(mask),
              _P(cidx), _P(hit), _P(vhit), _P(pop), b, c, _P(stream))

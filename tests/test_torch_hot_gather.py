@@ -25,6 +25,7 @@ from repro.kernels.hot_gather.ref import hot_gather_ref as jax_ref  # noqa: E402
 
 from repro_torch import kernels as kn  # noqa: E402
 from repro_torch.kernels.hot_gather import ops, ref  # noqa: E402
+from repro_torch.kernels.hot_gather.kernel import CHUNK  # noqa: E402
 
 SIZES = [(b, c, d) for b in (1, 128, 300) for c in (1, 128, 200)
          for d in (1, 3, 64)]
@@ -174,6 +175,132 @@ def test_wrapper_runs_plain_version_on_cpu():
     kn.reset_launch_counts()
     port_forms(ids, hot, rows)
     assert kn.LAUNCHES["hot_gather"] == 0
+
+
+def make_edge_case(seed, b, c, d, dtype, kind):
+    """The hot vectors the kernel's table is aimed at: "sentinel90" and
+    "sentinel100" make 90 % or all of the hot ids -2 (some ids ask for -2
+    as well), "equal" makes them one id that half the lanes ask for,
+    "multi" draws them from c // 8 ids, several matches a lane."""
+    rng = np.random.default_rng(seed)
+    universe = 2 * c + 4
+    ids = rng.integers(0, universe, b).astype(np.int32)
+    ids[rng.random(b) < 0.1] = -3
+    if kind.startswith("sentinel"):
+        share = 0.9 if kind == "sentinel90" else 1.0
+        hot = rng.choice(universe, c, replace=False).astype(np.int32)
+        hot[rng.permutation(c)[:int(round(share * c))]] = -2
+        ids[rng.random(b) < 0.05] = -2
+    elif kind == "equal":
+        hot = np.full(c, 7, np.int32)
+        ids[rng.random(b) < 0.5] = 7
+    else:
+        hot = rng.integers(0, max(1, c // 8), c).astype(np.int32)
+        ids = rng.integers(0, max(1, c // 8) + 1, b).astype(np.int32)
+    if dtype == np.int32:
+        rows = rng.integers(-1000, 1000, (c, d)).astype(np.int32)
+    else:
+        rows = rng.normal(size=(c, d)).astype(np.float32)
+    return ids, hot, rows
+
+
+@pytest.mark.parametrize("b,c", [(128, 2048), (300, 200)])
+@pytest.mark.parametrize("kind", ["sentinel90", "sentinel100"])
+def test_sentinel_dense_hot_ids(b, c, kind):
+    """Hot vectors dense in the -2 sentinel (the controller's report
+    lanes), with some ids asking for -2: int32 rows exactly."""
+    ids, hot, rows = make_edge_case(b + c, b, c, 1, np.int32, kind)
+    assert (hot == -2).mean() > 0.89 and (ids == -2).any()
+    check(ids, hot, rows, True, f"{kind} b={b} c={c}", interpret=c <= 200)
+
+
+@pytest.mark.parametrize("b,c", [(128, 2048), (300, 200)])
+@pytest.mark.parametrize("dtype", ["int32", "bf16"])
+def test_all_hot_ids_equal(b, c, dtype):
+    """Every hot id the same: a lane asking for it sums all C rows (int32
+    exactly, bf16 within 2e-2); the rest miss."""
+    ids, hot, rows = make_edge_case(2 * b + c, b, c, 1,
+                                    np.int32 if dtype == "int32"
+                                    else np.float32, "equal")
+    if dtype == "int32":
+        check(ids, hot, rows, True, f"equal b={b} c={c}", interpret=False)
+        return
+    jrows = jnp.asarray(rows, jnp.bfloat16)
+    w_out, w_hit = jax_ref(jnp.asarray(ids), jnp.asarray(hot), jrows)
+    t = torch.from_numpy
+    trows = t(rows).to(torch.bfloat16)
+    for g_out, g_hit in (kn.hot_gather(t(ids), t(hot), trows),
+                         ops.hot_gather(t(ids), t(hot), trows)):
+        np.testing.assert_array_equal(g_hit.numpy(), np.asarray(w_hit))
+        np.testing.assert_allclose(g_out.float().numpy(),
+                                   np.asarray(w_out, np.float32),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("b,c", [(128, 200), (300, 128), (64, 2048)])
+def test_float32_several_matches_d64(b, c):
+    """float32 rows of width 64, hot ids drawn from c // 8 ids: several
+    matches a lane, within the float32 bound of ``test_float32_rows``."""
+    ids, hot, rows = make_edge_case(3 * b + c, b, c, 64, np.float32,
+                                    "multi")
+    eq = ids[:, None] == hot[None, :]
+    assert eq.sum(axis=1).max() >= 4
+    check(ids, hot, rows, False, f"f32 multi b={b} c={c}", interpret=False)
+
+
+PAST_CHUNK = 2 * CHUNK + 808     # 9,000 hot ids: three of the kernel's tables
+
+
+@pytest.mark.parametrize("kind,dtype", [("multi", np.float32),
+                                        ("equal", np.int32),
+                                        ("sentinel90", np.int32)],
+                         ids=["f32_multi", "int32_equal", "int32_sentinel90"])
+def test_hot_ids_past_one_chunk(kind, dtype):
+    """More hot ids than one of the kernel's shared-memory tables holds
+    (``kernel.CHUNK``): the matches of a lane fall in several tables and
+    must still sum in ascending c (float32 within 1e-6, int32 exactly)."""
+    b, c = 300, PAST_CHUNK
+    ids, hot, rows = make_edge_case(7 * b + c, b, c, 3, dtype, kind)
+    eq = ids[:, None] == hot[None, :]
+    assert (eq[:, :CHUNK].any(axis=1) & eq[:, CHUNK:].any(axis=1)).any() \
+        or kind == "sentinel90"
+    check(ids, hot, rows, dtype == np.int32, f"{kind} c={c}",
+          interpret=False)
+
+
+EDGE_CASES = ([(b, c, 1, dt, kind) for b, c in ((1, 1), (300, 200),
+                                                  (128, 2048), (2048, 2048),
+                                                  (2048, 128))
+               for kind in ("sentinel90", "sentinel100", "equal")
+               for dt in (np.int32, "bf16")]
+              + [(b, c, 64, dt, "multi") for b, c in ((128, 200), (300, 2048))
+                 for dt in (np.float32, np.int32, "bf16")]
+              + [(300, PAST_CHUNK, 3, np.float32, "multi"),
+                 (2048, PAST_CHUNK, 1, np.int32, "equal"),
+                 (2048, PAST_CHUNK, 1, "bf16", "sentinel90")])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_hash_table_edges():
+    """On the card, the cases above through the kernel against the plain
+    version: int32 exactly, float32 within 1e-6, bf16 within 2e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    for i, (b, c, d, dt, kind) in enumerate(EDGE_CASES):
+        ids, hot, rows = (torch.from_numpy(a).cuda() for a in make_edge_case(
+            i, b, c, d, np.int32 if dt == np.int32 else np.float32, kind))
+        if dt == "bf16":
+            rows = rows.to(torch.bfloat16)
+        g_out, g_hit = ops.hot_gather(ids, hot, rows)
+        w_out, w_hit = ref.hot_gather_ref(ids, hot, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(g_hit, w_hit), (b, c, d, dt, kind)
+        if dt == np.int32:
+            assert torch.equal(g_out, w_out), (b, c, d, dt, kind)
+        else:
+            tol = BF16_TOL if dt == "bf16" else 1e-6
+            torch.testing.assert_close(g_out.float(), w_out.float(),
+                                       rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

@@ -23,6 +23,8 @@ from repro.kernels.orbit_match.ref import orbit_match_ref as jax_ref  # noqa: E4
 
 from repro_torch import kernels as kn  # noqa: E402
 from repro_torch.kernels.orbit_match import ops, ref  # noqa: E402
+from repro_torch.kernels.orbit_match.kernel import (  # noqa: E402
+    CHUNK, CLUSTER_LANES)
 
 SWEEP = [(8, 8), (64, 16), (300, 128), (1024, 512), (17, 5)]
 FLAGS = np.array([-1, 0, 1, 2], np.int32)
@@ -199,6 +201,62 @@ def test_cpu_wrapper_launches_nothing_and_empty_table_raises():
     assert kn.LAUNCHES["orbit_match"] == 0
     with pytest.raises(ValueError, match="at least one entry"):
         kn.orbit_match(hk, tb[:0], occ[:0], val[:0])
+
+
+PAST_CLUSTER = CLUSTER_LANES + 1808       # 10,000 lanes
+PAST_CHUNK = 2 * CHUNK + 808              # 9,000 entries, three passes
+
+
+@pytest.mark.parametrize("mask,dup", [(False, False), (True, False),
+                                      (True, True)],
+                         ids=["all_lanes", "mask", "mask_dup_entries"])
+def test_orbit_match_batch_past_one_cluster(mask, dup):
+    """More lanes than one launch of the kernel covers at once (a cluster
+    of 8 blocks of 1,024 threads), so its threads loop over lanes."""
+    check(make_case(11, PAST_CLUSTER, 64, mask=mask, dup=dup),
+          f"b={PAST_CLUSTER} mask={mask} dup={dup}")
+
+
+@pytest.mark.parametrize("b,c", [(17, 5), (64, 16), (300, 128), (31, 130),
+                                 (1024, 512)])
+def test_orbit_match_duplicate_heavy_table(b, c):
+    """A table of copies of four keys, occupied or not, a mask on the
+    lanes: ``cidx`` is the first occupied copy, ``pop`` counts every
+    occupied copy."""
+    case = make_case(3 * b + c, b, c, mask=True, universe=4)
+    _, hit, _, pop = check(case, f"four keys b={b} c={c}",
+                           interpret=b * c <= 64 * 16)
+    assert int(hit.sum()) > 0 and int(pop.sum()) > 0
+
+
+@pytest.mark.parametrize("universe", [None, 4], ids=["keys", "four_keys"])
+def test_orbit_match_table_past_one_chunk(universe):
+    """More entries than the kernel stages at once (``kernel.CHUNK``), so
+    it passes over the table three times: ``cidx`` is the first occupied
+    match over all passes, ``pop`` counts the matches of every pass."""
+    c = PAST_CHUNK
+    case = make_case(5, 64, c, mask=True, universe=universe or 2 * c)
+    _, hit, _, pop = check(case, f"c={c} universe={universe}")
+    assert int(hit.sum()) > 0 and int(pop.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_design_edges():
+    """On the card: lanes past one cluster, tables past one chunk and
+    tables of copies of four keys, against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    cases = [(PAST_CLUSTER, 128, 50), (352, PAST_CHUNK, 2 * PAST_CHUNK),
+             (PAST_CLUSTER, PAST_CHUNK, 4), (352, CHUNK, 4), (1025, 16, 4),
+             (352, 128, 4), (31, 130, 4)]
+    for i, (b, c, universe) in enumerate(cases):
+        for mask in (False, True):
+            args = [None if a is None else a.cuda() for a in port_args(
+                make_case(i, b, c, mask=mask, universe=universe))]
+            got = ops.orbit_match(*args)
+            torch.cuda.synchronize()
+            for g, w in zip(got, ref.orbit_match_ref(*args)):
+                assert torch.equal(g, w), (b, c, universe, mask)
 
 
 @pytest.mark.cuda
