@@ -29,30 +29,47 @@ line; any failure exits non-zero:
    ``hot_gather``, the library's two calls beside it, read both ways;
 4. main path at the paper's scale (``configs/orbitcache_paper.py``: 10M
    keys, C = 128, 32 servers, 4M rps offered): preload the 128 hottest
-   keys, run 1,000 windows through ``RackSimulator.run``, check that every
-   subround launched the kernel once, then replay the same draws from the
-   same carry with the plain version and require every carry leaf and
-   every metric to be equal; then profile 25 windows;
+   keys, run 1,000 windows through ``RackSimulator.run``, each window a
+   replay of a CUDA graph (the simulator's default on the card), check
+   that every subround launched the kernel once, then replay the same
+   draws from the same carry with the plain version (eager chunks) and
+   require every carry leaf and every metric to be equal; then the first
+   500 windows again, graphed and as eager chunks on the kernel path
+   (``graphs=False``), equal in every carry leaf and metric, and 25
+   windows profiled each way (``graphed_vs_eager``: windows/s, device ms
+   per window and the device's idle share of each run, the graphs'
+   capture seconds and pool memory; where the profiler sees no kernel of
+   a replayed graph, the device time comes from CUDA events around the
+   replays and ``device_time_method`` says so);
 5. control plane at the same scale with the servers' popularity tracking
    on: preload, then three phases of ``run(0.05, controller_period_s=
    0.01)`` (500 windows, 5 periods each) with ``hot_in_swap(128)`` before
-   phases 2 and 3, the cadence of Fig. 18.  Every window must launch 4
-   subround kernels and 1 count-min kernel, every period 3 hot_gather
-   kernels, and no plain version may run; the replay under the plain
-   versions must equal it in every carry leaf, metric and period update.
-   Then one period from the start again, recording the three input sets
-   of its ``_merge_scores`` call; each is held against the plain version
-   and timed (``hot_gather_live``);
+   phases 2 and 3, the cadence of Fig. 18, graphed (a window graph and a
+   period graph).  Every window must launch 4 subround kernels and 1
+   count-min kernel, every period 3 hot_gather kernels, and no plain
+   version may run; the replay under the plain versions must equal it in
+   every carry leaf, metric and period update; the three phases cut to
+   200 windows (2 periods) each, with both swaps, graphed and as eager
+   chunks on the kernel path, must be equal too (``graphed_vs_eager``, a
+   period profiled each way).  Then one period from the start again
+   (eager), recording the three input sets of its ``_merge_scores`` call;
+   each is held against the plain version and timed
+   (``hot_gather_live``);
 6. ``orbit_match``, which no simulator path calls, through its own entry
    point ``kernels.orbit_match``: against its plain version over fuzz
    cases and on the paper rack's table after the preload against one
    window's live ingress, timed there, then one call per subround of that
    window with the launches counted;
 7. the compared schemes on the paper rack: NoCache, and NetCache with the
-   10,000 hottest keys preloaded, 500 windows each (``serve_kv.py``'s
-   0.05 s); neither may launch a kernel or run a plain version.  Then 64
-   windows of each from one carry and one set of numpy-made draws, once on
-   the card and once on the CPU: every carry leaf and metric equal.
+   10,000 hottest keys preloaded, 500 graphed windows each
+   (``serve_kv.py``'s 0.05 s); neither may launch a kernel or run a plain
+   version; the same 500 windows graphed and as eager chunks must be
+   equal (``graphed_vs_eager``).  Then 64 windows of each from one carry and
+   one set of numpy-made draws, once on the card and once on the CPU:
+   every carry leaf and metric equal;
+8. ``no_sync``, after each of the cells above: 8 windows (a period on the
+   control plane) as an eager chunk and as graph replays, each under
+   ``torch.cuda.set_sync_debug_mode("error")``.
 
 The line before the last two is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback.
@@ -79,6 +96,10 @@ FUZZ_CASES = 200
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 SCALAR_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 CP_PHASES, CP_PHASE_S, CP_PERIOD_S, CP_SWAP = 3, 0.05, 0.01, 128
+# depth of the graphed-against-eager comparison, cut to keep the script's
+# time: the main path's first 500 windows, the control plane's three
+# phases and two swaps at 200 windows (2 periods) a phase
+EAGER_WINDOWS, CP_EAGER_S = 500, 0.02
 SCHEME_S, SCHEME_CHECK_WINDOWS = 0.05, 64
 BF16_TOL = 2e-2               # tests/test_kernels.py's bf16 hot_gather bound
 
@@ -166,9 +187,9 @@ def bound(nbytes, ops):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_profile(fn):
+def device_profile(fn, require=True):
     """Run ``fn`` under ``torch.profiler``: ``(device events, wall s)``.
-    Fails if the profiler saw no device event."""
+    Fails if the profiler saw no device event, unless not ``require``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -179,7 +200,7 @@ def device_profile(fn):
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None)
               == torch.autograd.DeviceType.CUDA]
-    if not events:
+    if not events and require:
         raise AssertionError("the profiler saw no device events")
     return events, wall
 
@@ -188,6 +209,118 @@ def device_us(events, name=""):
     """Device µs of the events whose key holds ``name``."""
     return sum(getattr(e, "self_device_time_total", 0) for e in events
                if name in e.key)
+
+
+def busy_per_window(run, n_windows, events=None, wall=None):
+    """Device time of ``run()``, which steps ``n_windows`` windows (or of
+    the profiler's ``events`` over ``wall`` s of such a run, if given).
+    From ``torch.profiler``'s device events; where it sees none (kernels
+    inside a replayed CUDA graph may stay hidden from it), from CUDA
+    events around the run, which also count the device's idle gaps, and
+    no kernel count."""
+    if events is None:
+        events, wall = device_profile(run, require=False)
+    if events:
+        ms = device_us(events) / 1e3 / n_windows
+        kernels, method = sum(e.count for e in events) / n_windows, \
+            "profiler"
+    else:
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        run()
+        t1.record()
+        torch.cuda.synchronize()
+        ms, kernels, method = t0.elapsed_time(t1) / n_windows, None, \
+            "cuda_events"
+    return dict(device_ms_per_window=ms, device_kernels_per_window=kernels,
+                device_time_method=method,
+                profiled_wall_ms_per_window=wall * 1e3 / n_windows)
+
+
+def rates(n_win, wall, busy):
+    """windows/s and wall ms per window of an unprofiled run of ``n_win``
+    windows in ``wall`` s, with ``busy`` (:func:`busy_per_window` of a
+    profiled stretch of the same mode) and the device's idle share against
+    the unprofiled window and against the profiled one.  The profiler
+    lengthens each kernel it records a little, so against a graphed
+    window, which the device's time alone sets, the first can fall below
+    0."""
+    wall_ms = wall * 1e3 / n_win
+    ms = busy["device_ms_per_window"]
+    return dict(windows_per_s=round(n_win / wall, 1), seconds=round(wall, 3),
+                wall_ms_per_window=wall_ms, **busy,
+                device_idle_share=1 - ms / wall_ms,
+                device_idle_share_profiled=(
+                    1 - ms / busy["profiled_wall_ms_per_window"]))
+
+
+def graphed_and_eager(cell, sim, drive, rewind):
+    """``drive()`` from ``rewind()`` as graphed chunks, then again from
+    ``rewind()`` as eager chunks on the kernel path (``graphs=False``):
+    every output (``drive`` returns a list of dicts of numpy arrays) and
+    every carry leaf must be equal.  Returns ``(graphed wall s, eager wall
+    s, equal leaves, equal outputs)``."""
+    from repro_torch.interop import to_numpy
+
+    runs = []
+    for graphs in (True, False):
+        rewind()
+        sim.chunk.graphs = graphs
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = drive()
+            torch.cuda.synchronize()
+            runs.append((out, time.perf_counter() - t0, to_numpy(sim.carry)))
+        finally:
+            sim.chunk.graphs = True
+    (got, wall_g, carry_g), (want, wall_e, carry_e) = runs
+    n_out = 0
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        for k, v in g.items():
+            if v.dtype != w[k].dtype or not np.array_equal(v, w[k]):
+                raise AssertionError(f"{cell}: graphed and eager chunks "
+                                     f"differ in output {i} {k}")
+            n_out += 1
+    n_leaves = compare_trees(carry_g, carry_e, f"{cell} carry")
+    return wall_g, wall_e, n_leaves, n_out
+
+
+def graph_stats(sim):
+    ch = sim.chunk
+    return dict(capture_seconds=round(ch.capture_seconds, 3),
+                captures=ch.captures,
+                graph_pool_mib={k: round(v / 2**20, 1)
+                                for k, v in ch.graph_bytes.items()})
+
+
+def no_sync(cell, sim, period_w=None):
+    """8 windows (with ``period_w``, one period) of ``sim``'s chunk, eager
+    then graphed, each under ``torch.cuda.set_sync_debug_mode("error")``
+    after one unchecked run (which captures the graphs): no window or
+    period boundary may wait for the card or copy from the host."""
+    wl = sim.wl.arrays
+
+    def run():
+        if period_w:
+            sim.chunk.controller_chunk(wl, sim.carry,
+                                       sim.controller.active_size,
+                                       sim.controller.cfg, 1, period_w)
+        else:
+            sim.chunk(wl, sim.carry, 8)
+
+    for graphs in (False, True):
+        sim.chunk.graphs = graphs
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    phase("no_sync", cell=cell, windows=period_w or 8,
+          period=bool(period_w), eager=True, graphed=True)
 
 
 def max_abs_err(got, want):
@@ -893,9 +1026,11 @@ def run_main_path(dev):
             raise AssertionError("the rack served nothing")
 
         # the same draws from the same carry, through the plain version
+        # (eager, so that every plain call is counted)
         sim.carry = clone_tree(start)
         sim.carry.draws.set_state(gen_state)
         kn.set_kernel_backend("ref")
+        sim.chunk.graphs = False
         try:
             t0 = time.perf_counter()
             res_ref = sim.run(seconds, chunk_windows=WINDOWS // 4)
@@ -903,6 +1038,7 @@ def run_main_path(dev):
             wall_ref = time.perf_counter() - t0
         finally:
             kn.set_kernel_backend(None)
+            sim.chunk.graphs = True
         if plain_calls["subround"] != RACK.subrounds * WINDOWS:
             raise AssertionError(f"plain replay ran {plain_calls} calls")
         for k, v in res.traces.items():
@@ -914,33 +1050,46 @@ def run_main_path(dev):
               seconds=round(wall_ref, 3), equal_leaves=n_leaves,
               equal_metrics=len(res.traces))
 
-        # what the profiler sees of a short run of the kernel path
+    def rewind():
         sim.carry = clone_tree(start)
         sim.carry.draws.set_state(gen_state)
-        kn.reset_launch_counts()
-        prof_windows = 25
-        dev_events, prof_wall = device_profile(
-            lambda: sim.run_windows(prof_windows))
-        sub = sum(e.count for e in dev_events if "subround_kernel" in e.key)
-        if sub != RACK.subrounds * prof_windows:
-            raise AssertionError(f"profiler saw {sub} subround kernels in "
-                                 f"{prof_windows} windows")
-        dev_us = device_us(dev_events)
-        busy_ms_per_window = dev_us / 1e3 / prof_windows
-        # the device's idle share of the unprofiled main-path run, from the
-        # device time per window the profiler saw; and of the profiled
-        # window itself, whose wall time includes the profiler's overhead
-        sub_us = device_us(dev_events, "subround_kernel")
-        phase("profile", windows=prof_windows, subround_kernels=sub,
-              launch_count=kn.LAUNCHES["subround"],
-              subround_device_us_per_window=sub_us / prof_windows,
-              subround_device_us_per_launch=sub_us / max(sub, 1),
-              device_kernels=sum(e.count for e in dev_events),
-              device_busy_ms_per_window=busy_ms_per_window,
-              wall_ms_per_window=wall * 1e3 / n_win,
-              profiled_wall_ms_per_window=prof_wall * 1e3 / prof_windows,
-              device_idle_share=1 - busy_ms_per_window / (wall * 1e3 / n_win),
-              device_idle_share_profiled=1 - dev_us / 1e6 / prof_wall)
+
+    # graphed against eager chunks on the kernel path, over the first
+    # EAGER_WINDOWS windows (the eager side is the slow one)
+    wall_g, wall_e, n_leaves, n_out = graphed_and_eager(
+        "orbitcache", sim,
+        lambda: [sim.run(EAGER_WINDOWS * RACK.window_us * 1e-6,
+                         chunk_windows=WINDOWS // 4).traces], rewind)
+
+    # what the profiler sees of a short run, eager then graphed
+    prof_windows = 25
+    rewind()
+    sim.chunk.graphs = False
+    kn.reset_launch_counts()
+    dev_events, prof_wall = device_profile(
+        lambda: sim.run_windows(prof_windows))
+    sim.chunk.graphs = True
+    sub = sum(e.count for e in dev_events if "subround_kernel" in e.key)
+    if sub != RACK.subrounds * prof_windows:
+        raise AssertionError(f"profiler saw {sub} subround kernels in "
+                             f"{prof_windows} windows")
+    busy_eager = busy_per_window(None, prof_windows, dev_events, prof_wall)
+    sub_us = device_us(dev_events, "subround_kernel")
+    phase("profile", windows=prof_windows, subround_kernels=sub,
+          launch_count=kn.LAUNCHES["subround"],
+          subround_device_us_per_window=sub_us / prof_windows,
+          subround_device_us_per_launch=sub_us / max(sub, 1),
+          device_kernels=sum(e.count for e in dev_events),
+          device_busy_ms_per_window=busy_eager["device_ms_per_window"])
+    rewind()
+    busy_graphed = busy_per_window(lambda: sim.run_windows(prof_windows),
+                                   prof_windows)
+    phase("graphed_vs_eager", cell="orbitcache", windows=EAGER_WINDOWS,
+          equal_leaves=n_leaves, equal_metrics=n_out,
+          graphed=dict(rates(EAGER_WINDOWS, wall_g, busy_graphed),
+                       **graph_stats(sim)),
+          eager=rates(EAGER_WINDOWS, wall_e, busy_eager))
+    no_sync("orbitcache", sim)
     return launches, live
 
 
@@ -970,7 +1119,7 @@ def run_control_plane(dev):
     gen_state = sim.carry.draws.get_state()
     act0, perm0 = sim.controller.active_size, wl._perm_np.copy()
 
-    def drive():
+    def drive(phase_s=CP_PHASE_S):
         """The three phases; returns their results and every period's
         update."""
         results, updates = [], []
@@ -978,7 +1127,7 @@ def run_control_plane(dev):
             if p:
                 wl.hot_in_swap(CP_SWAP)
             results.append(sim.run(
-                CP_PHASE_S, controller_period_s=CP_PERIOD_S,
+                phase_s, controller_period_s=CP_PERIOD_S,
                 on_period=lambda s, w: updates.append(s._last_update)))
         return results, updates
 
@@ -1039,8 +1188,10 @@ def run_control_plane(dev):
                                  "the churn")
 
         # the same draws, carry and workload through the plain versions
+        # (eager, so that every plain call is counted)
         rewind()
         kn.set_kernel_backend("ref")
+        sim.chunk.graphs = False
         try:
             t0 = time.perf_counter()
             results_ref, updates_ref = drive()
@@ -1048,6 +1199,7 @@ def run_control_plane(dev):
             wall_ref = time.perf_counter() - t0
         finally:
             kn.set_kernel_backend(None)
+            sim.chunk.graphs = True
         if (plain_calls["subround"], plain_calls["cms"],
                 plain_calls["hot_gather"]) != tuple(want.values()):
             raise AssertionError(f"plain replay ran {plain_calls} calls")
@@ -1066,29 +1218,49 @@ def run_control_plane(dev):
               equal_metrics=len(results[0].traces) * len(results),
               equal_update_leaves=n_upd)
 
-        # what the profiler sees of one period of the kernel path
-        rewind()
-        kn.reset_launch_counts()
-        dev_events, prof_wall = device_profile(
-            lambda: sim.run_periods(1, period_w))
-        by_kernel = {k: sum(e.count for e in dev_events if f"{k}_kernel"
-                            in e.key) for k in want}
-        us_by_kernel = {k: device_us(dev_events, f"{k}_kernel") for k in want}
-        if by_kernel != {"subround": rack.subrounds * period_w,
-                         "cms": period_w, "hot_gather": 3}:
-            raise AssertionError(f"profiler saw {by_kernel} in one period")
-        busy = device_us(dev_events) / 1e3 / period_w
-        phase("control_plane_profile", windows=period_w,
-              kernels_seen=by_kernel, kernel_device_us=us_by_kernel,
-              kernel_device_us_per_window={
-                  k: v / period_w for k, v in us_by_kernel.items()},
-              kernel_device_us_per_launch={
-                  k: v / by_kernel[k] for k, v in us_by_kernel.items()},
-              device_kernels=sum(e.count for e in dev_events),
-              device_busy_ms_per_window=busy,
-              wall_ms_per_window=wall * 1e3 / n_win,
-              profiled_wall_ms_per_window=prof_wall * 1e3 / period_w,
-              device_idle_share=1 - busy / (wall * 1e3 / n_win))
+    # graphed against eager chunks on the kernel path: the three phases
+    # and both swaps, each phase cut to CP_EAGER_S
+    def outputs():
+        results, updates = drive(CP_EAGER_S)
+        return ([r.traces for r in results] + [u._asdict() for u in updates]
+                + [dict(active_size=np.array(sim.controller.active_size))])
+
+    wall_g, wall_e, n_leaves, n_out = graphed_and_eager(
+        "control_plane", sim, outputs, rewind)
+    n_cmp = CP_PHASES * int(round(CP_EAGER_S / (rack.window_us * 1e-6)))
+
+    # what the profiler sees of one period, eager then graphed
+    rewind()
+    sim.chunk.graphs = False
+    kn.reset_launch_counts()
+    dev_events, prof_wall = device_profile(
+        lambda: sim.run_periods(1, period_w))
+    sim.chunk.graphs = True
+    by_kernel = {k: sum(e.count for e in dev_events if f"{k}_kernel"
+                        in e.key) for k in want}
+    us_by_kernel = {k: device_us(dev_events, f"{k}_kernel") for k in want}
+    if by_kernel != {"subround": rack.subrounds * period_w,
+                     "cms": period_w, "hot_gather": 3}:
+        raise AssertionError(f"profiler saw {by_kernel} in one period")
+    busy_eager = busy_per_window(None, period_w, dev_events, prof_wall)
+    phase("control_plane_profile", windows=period_w,
+          kernels_seen=by_kernel, kernel_device_us=us_by_kernel,
+          kernel_device_us_per_window={
+              k: v / period_w for k, v in us_by_kernel.items()},
+          kernel_device_us_per_launch={
+              k: v / by_kernel[k] for k, v in us_by_kernel.items()},
+          device_kernels=sum(e.count for e in dev_events),
+          device_busy_ms_per_window=busy_eager["device_ms_per_window"])
+    rewind()
+    busy_graphed = busy_per_window(lambda: sim.run_periods(1, period_w),
+                                   period_w)
+    phase("graphed_vs_eager", cell="control_plane", windows=n_cmp,
+          periods=n_cmp // period_w, equal_leaves=n_leaves,
+          equal_outputs=n_out,
+          graphed=dict(rates(n_cmp, wall_g, busy_graphed),
+                       **graph_stats(sim)),
+          eager=rates(n_cmp, wall_e, busy_eager))
+    no_sync("control_plane", sim, period_w)
     rewind()
     run_hot_gather_live(sim, period_w)
     return launches
@@ -1107,10 +1279,12 @@ def merge_inputs(sim, period_w):
         return real(*args)
 
     kn.hot_gather = record
+    sim.chunk.graphs = False        # a graph would replay past the recorder
     try:
         sim.run_periods(1, period_w)
     finally:
         kn.hot_gather = real
+        sim.chunk.graphs = True
     if len(recorded) != 3:
         raise AssertionError(f"{len(recorded)} hot_gather calls in a period")
     return recorded
@@ -1157,6 +1331,8 @@ def run_schemes(dev):
         if scheme == "netcache":
             sim.preload(wl.hottest_keys(rack.netcache_entries))
         n_win = int(round(SCHEME_S / (rack.window_us * 1e-6)))
+        start = clone_tree(sim.carry)
+        gen_state = sim.carry.draws.get_state()
         with counting_plain_versions() as plain_calls:
             kn.reset_launch_counts()
             torch.cuda.synchronize()
@@ -1189,20 +1365,31 @@ def run_schemes(dev):
               p50_us=res.latency_percentile(0.5),
               p99_us=res.latency_percentile(0.99), hits=hits,
               installed=installed, launches=launches, plain_calls=calls)
+        def rewind():
+            sim.carry = clone_tree(start)
+            sim.carry.draws.set_state(gen_state)
+
+        wall_g, wall_e, n_leaves, n_out = graphed_and_eager(
+            scheme, sim,
+            lambda: [sim.run(SCHEME_S, chunk_windows=n_win).traces], rewind)
         prof_windows = 25
-        dev_events, prof_wall = device_profile(
-            lambda: sim.run_windows(prof_windows))
-        busy = device_us(dev_events) / 1e3 / prof_windows
-        phase("scheme_profile", scheme=scheme, windows=prof_windows,
-              device_kernels=sum(e.count for e in dev_events),
-              device_busy_ms_per_window=busy,
-              wall_ms_per_window=wall * 1e3 / n_win,
-              profiled_wall_ms_per_window=prof_wall * 1e3 / prof_windows,
-              device_idle_share=1 - busy / (wall * 1e3 / n_win))
+        busy = {}
+        for graphs in (False, True):
+            rewind()
+            sim.chunk.graphs = graphs
+            busy[graphs] = busy_per_window(
+                lambda: sim.run_windows(prof_windows), prof_windows)
+        phase("graphed_vs_eager", cell=scheme, windows=n_win,
+              equal_leaves=n_leaves, equal_metrics=n_out,
+              graphed=dict(rates(n_win, wall_g, busy[True]),
+                           **graph_stats(sim)),
+              eager=rates(n_win, wall_e, busy[False]))
+        no_sync(scheme, sim)
 
         # the card against the CPU: one carry, one set of numpy-made draws,
-        # writes on so that invalidations and installs run
-        start = sim.carry._replace(write_ratio=torch.tensor(
+        # writes on so that invalidations and installs run (a clone: the
+        # card's chunk overwrites the carry it leaves in ``sim.carry``)
+        start = clone_tree(sim.carry)._replace(write_ratio=torch.tensor(
             0.1, dtype=torch.float32, device=dev))
         rng = np.random.default_rng(100 + i)
         w_n, b = SCHEME_CHECK_WINDOWS, rack.client_batch

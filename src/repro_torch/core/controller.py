@@ -21,7 +21,7 @@ import torch
 
 from .hashing import hash128_u32, hash128_u32_np, to_u32
 from .scatter_free import unique_writer
-from .types import COUNTER_DTYPE, SwitchState
+from .types import COUNTER_DTYPE, SwitchState, device_const
 
 
 @dataclass(frozen=True)
@@ -211,7 +211,7 @@ def _traced_resize(cfg: ControllerConfig, active_size, overflow,
     if not cfg.dynamic_sizing:
         return active_size, ratio
     traffic = cached_reqs > 0
-    thr = torch.tensor(np.float32(cfg.overflow_threshold), device=cr.device)
+    thr = device_const(np.float32(cfg.overflow_threshold), F32, cr.device)
     shrink = traffic & (ovf > thr * cr)
     grow = traffic & ~shrink
     smaller = torch.clamp(active_size - cfg.size_step, min=cfg.min_size)
@@ -353,7 +353,7 @@ def controller_step(
     new_version = st.version + touched.to(I32)
 
     # ---- orbit lines -------------------------------------------------------
-    ent = torch.repeat_interleave(ar(cap), f)
+    ent = ar(cap)[:, None].expand(cap, f).reshape(-1)   # line -> entry
     live2 = orb.live & ~changed[ent]
     if install_live:
         if report_vlen is None:

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .types import device_const
+
 _M32 = 0xFFFFFFFF
 _FNV_PRIME = 16777619
 _LANE_BASIS = (2166136261, 2166136261 ^ 0x5BD1E995,
@@ -57,8 +59,8 @@ def _splitmix32_np(x: np.ndarray) -> np.ndarray:
 def hash128_u32(kidx: torch.Tensor) -> torch.Tensor:
     """int[...] key identities -> int32[..., 4] hash words (uint32 bits)."""
     k = to_u32(kidx)
-    lanes = torch.tensor(_LANE_BASIS, dtype=torch.int64, device=k.device)
-    lanes = lanes.expand(k.shape + (4,))
+    lanes = device_const(_LANE_BASIS, torch.int64, k.device).expand(
+        k.shape + (4,))
     for i in range(4):
         byte = ((k >> (8 * i)) & 0xFF)[..., None]
         lanes = _mul32(lanes ^ byte, _FNV_PRIME)

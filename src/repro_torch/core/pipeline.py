@@ -26,7 +26,7 @@ from .types import (
     OP_CRN_REQ, OP_F_REP, OP_F_REQ, OP_R_REP, OP_R_REQ, OP_W_REP, OP_W_REQ,
     ROUTE_CLIENT, ROUTE_DROP, ROUTE_SERVER,
     Counters, LookupTable, OrbitBuffer, OrbitMeta, PacketBatch, RequestTable,
-    StateTable, SwitchState, sat_add,
+    StateTable, SwitchState, device_const, sat_add,
 )
 
 HDR_BYTES = 62
@@ -235,8 +235,7 @@ def recirc_budget(live: torch.Tensor, vlen: torch.Tensor, *,
     same way; the budget feeds the kernel's serve counts, so a one-ulp
     difference would spread into the switch state.
     """
-    dev = live.device
-    f32 = lambda v: torch.tensor(v, dtype=F32, device=dev)
+    f32 = lambda v: device_const(v, F32, live.device)
     one = np.float32(1.0)
     port_rate = np.float32(recirc_gbps * 1e9 / 8.0)
     k_budget = ((np.float32(window_us) * np.float32(1e-6))

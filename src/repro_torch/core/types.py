@@ -12,6 +12,7 @@ names and shapes.  Dtypes follow one rule, owned both ways by
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -49,6 +50,17 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def device_const(value, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """``torch.tensor(value, dtype, device)``, built once per (value, dtype,
+    device) and never written: a window builds no tensor from host data, so
+    it neither copies to the card nor waits for it, and a CUDA graph can
+    capture it.  ``value`` keeps its own type (a ``np.float32`` stays that
+    exact float32)."""
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 class PacketBatch(NamedTuple):

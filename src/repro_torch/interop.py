@@ -47,9 +47,11 @@ def to_numpy(x, name: str | None = None):
     """Port tensor (or tree of them) -> numpy with the reference dtypes.
 
     Leaves that are not tensors (a draw source) pass through unchanged.
+    The arrays never share memory with the tensors, which a later chunk
+    overwrites.
     """
     if isinstance(x, torch.Tensor):
-        a = x.detach().cpu().numpy()
+        a = x.detach().to("cpu", copy=True).numpy()
         if name in HKEY_FIELDS:
             return a.view(np.uint32)
         if a.dtype == np.int64:

@@ -21,7 +21,7 @@ from repro_torch.core.hashing import hash128_u32, server_of_key
 from repro_torch.core.scatter_free import unique_writer
 from repro_torch.core.types import (
     COUNTER_DTYPE, OP_CRN_REQ, OP_R_REP, OP_R_REQ, OP_W_REP, OP_W_REQ,
-    PacketBatch, resolve_device, sat_add,
+    PacketBatch, device_const, resolve_device, sat_add,
 )
 
 LAT_BUCKETS = 80
@@ -30,10 +30,17 @@ I32, F32 = torch.int32, torch.float32
 
 
 def lat_bucket(lat_us: torch.Tensor) -> torch.Tensor:
-    """Quarter-octave log bucket index (int32)."""
-    base = torch.tensor(_LAT_BASE_US, dtype=F32, device=lat_us.device)
+    """Quarter-octave log bucket index (int32).
+
+    ``log2`` runs in float64 and rounds once to float32, the correctly
+    rounded float32 ``log2`` on every device and thread count.  Torch's
+    float32 ``log2`` on the CPU is not reproducible: the first call in a
+    process has returned values 6e-6 off on one thread's share of the
+    input, moving latencies one bucket."""
+    base = device_const(_LAT_BASE_US, F32, lat_us.device)
     x = torch.maximum(lat_us, base) / base
-    return torch.clamp((4.0 * torch.log2(x)).to(I32), 0, LAT_BUCKETS - 1)
+    log2x = torch.log2(x.to(torch.float64)).to(F32)
+    return torch.clamp((4.0 * log2x).to(I32), 0, LAT_BUCKETS - 1)
 
 
 def bucket_edges_us() -> np.ndarray:
@@ -85,7 +92,11 @@ def init_clients(cfg: ClientConfig, device=None) -> ClientState:
 
 class TorchDraws:
     """Per-window draws from a ``torch.Generator`` on ``device`` (Philox
-    on CUDA): ``n ~ Poisson(offered)``, ``u, w ~ U[0, 1)``."""
+    on CUDA): ``n ~ Poisson(offered)``, ``u, w ~ U[0, 1)``.
+
+    A CUDA graph that draws from it registers ``gen`` (the simulator's
+    chunk does), so each replay advances the generator as an eager
+    window does."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
@@ -98,6 +109,9 @@ class TorchDraws:
         w = torch.rand(b, dtype=F32, device=self.device, generator=self.gen)
         return n.to(torch.int64), u, w
 
+    def reserve(self, n: int) -> None:
+        """A generator never runs out."""
+
     def get_state(self) -> torch.Tensor:
         return self.gen.get_state()
 
@@ -106,20 +120,42 @@ class TorchDraws:
 
 
 class ReplayDraws:
-    """Replays recorded draws: ``n`` int[W], ``u`` and ``w`` float32[W, b]."""
+    """Replays recorded draws: ``n`` int[W], ``u`` and ``w`` float32[W, b].
+
+    The window to replay is a device index (``index``, int64[1]) that
+    :meth:`draw` reads and advances on the device, so a captured window
+    replays the next recorded one.  The host checks that enough windows
+    are left before a chunk runs (:meth:`reserve`)."""
 
     def __init__(self, n, u, w, device):
         self.n = torch.as_tensor(np.asarray(n), device=device).to(torch.int64)
         self.u = torch.as_tensor(np.asarray(u, np.float32), device=device)
         self.w = torch.as_tensor(np.asarray(w, np.float32), device=device)
-        self.pos = 0
+        self.index = torch.zeros(1, dtype=torch.int64, device=device)
+        self.pos = 0            # windows reserved so far (host side)
+
+    def reserve(self, n: int) -> None:
+        """Claim the next ``n`` windows; raises if fewer are left."""
+        if self.pos + n > self.n.shape[0]:
+            raise IndexError(f"ReplayDraws: {n} windows asked for, "
+                             f"{self.n.shape[0] - self.pos} of "
+                             f"{self.n.shape[0]} left")
+        self.pos += n
 
     def draw(self, offered: torch.Tensor, b: int):
-        if self.pos >= self.n.shape[0]:
-            raise IndexError(f"ReplayDraws: all {self.pos} windows used")
-        i = self.pos
-        self.pos += 1
-        return self.n[i], self.u[i, :b], self.w[i, :b]
+        i = self.index
+        n = self.n.index_select(0, i)[0]
+        u = self.u.index_select(0, i)[0, :b]
+        w = self.w.index_select(0, i)[0, :b]
+        self.index += 1
+        return n, u, w
+
+    def get_state(self) -> tuple[torch.Tensor, int]:
+        return self.index.clone(), self.pos
+
+    def set_state(self, state: tuple[torch.Tensor, int]) -> None:
+        self.index.copy_(state[0])
+        self.pos = state[1]
 
 
 def generate(st: ClientState, cfg: ClientConfig, draws, cdf: torch.Tensor,
@@ -197,8 +233,7 @@ def account_switch_served(st: ClientState, cfg: ClientConfig,
     ``served`` bool[C, J]; ``req_kidx`` int32[C, J]; ``ts`` and
     ``serve_time`` float32[C, J]; ``line_kidx`` int32[C].
     """
-    dev = served.device
-    f32 = lambda v: torch.tensor(v, dtype=F32, device=dev)
+    f32 = lambda v: device_const(v, F32, served.device)
     lat = torch.maximum(serve_time - ts, f32(0.05)) + f32(cfg.base_rtt_us)
     bucket = torch.where(served, lat_bucket(lat), LAT_BUCKETS)
     hist = sat_add(st.hist_switch, _bucket_counts(bucket))
@@ -225,8 +260,7 @@ def account_server_replies(st: ClientState, cfg: ClientConfig,
                            pkts: PacketBatch, to_client: torch.Tensor,
                            now: torch.Tensor) -> ClientState:
     """Account replies forwarded from storage servers (fragment 0 only)."""
-    dev = now.device
-    f32 = lambda v: torch.tensor(v, dtype=F32, device=dev)
+    f32 = lambda v: device_const(v, F32, now.device)
     is_rep = (to_client & ((pkts.op == OP_R_REP) | (pkts.op == OP_W_REP))
               & (pkts.port == 0))
     lat = torch.maximum(now - pkts.ts, f32(0.05)) + f32(cfg.base_rtt_us)

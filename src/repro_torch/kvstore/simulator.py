@@ -8,22 +8,26 @@ servers drain their FIFOs, the clients account the replies, and the
 servers' replies become next window's switch ingress.  Every ingress
 source is kept subround-major ``[R, L]``.
 
-A chunk of windows is an eager Python loop; nothing in it waits for the
+A chunk of windows is :class:`CompiledChunk`, the counterpart of the
+reference's jitted ``lax.scan`` chunk: on the card, one window is a CUDA
+graph replayed once per window, and nothing in a chunk waits for the
 device until the caller reads the metrics.  With a controller period, a
 chunk is whole periods: ``period_w`` windows, then one device-side cache
-update (:func:`controller_window_apply`), and the host reads only the
-metrics, the updates and ``active_size`` at the end of the chunk.  The
-``netcache`` and ``nocache`` switch passes are a few element-wise ops per
-subround and launch no kernel.
+update (:func:`controller_window_apply`, a second graph), and the host
+reads only the metrics, the updates and ``active_size`` at the end of the
+chunk.  The ``netcache`` and ``nocache`` switch passes are a few
+element-wise ops per subround and launch no kernel.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import kernels as kn
 from repro_torch.baselines import (
     init_netcache, netcache_install, netcache_step, nocache_step,
 )
@@ -33,8 +37,8 @@ from repro_torch.core.controller import (
 )
 from repro_torch.core.hashing import hash128_u32, server_of_key
 from repro_torch.core.types import (
-    OP_F_REQ, OP_NONE, ROUTE_CLIENT, ROUTE_SERVER, PacketBatch, empty_batch,
-    init_switch_state, resolve_device, sat_add,
+    OP_F_REQ, OP_NONE, ROUTE_CLIENT, ROUTE_SERVER, PacketBatch, device_const,
+    empty_batch, init_switch_state, resolve_device, sat_add,
 )
 from repro_torch.interop import to_numpy
 
@@ -272,7 +276,7 @@ def process_window(cfg: RackConfig, server_cfg: ServerConfig,
     """Run one window over the subround-major ingress ``sub``."""
     c = cfg
     dev = sub.op.device
-    f32 = lambda v: torch.tensor(v, dtype=F32, device=dev)
+    f32 = lambda v: device_const(v, F32, dev)
     pad_to = sub.op.shape[0] * sub.op.shape[1]
     window = f32(c.window_us)
     isum = lambda x: torch.sum(x, dtype=I32)
@@ -423,10 +427,217 @@ def chunked_run(total_windows: int, chunk_windows: int,
     return traces
 
 
-def _stack_metrics(ys: list[WindowMetrics]) -> dict[str, np.ndarray]:
-    """Per-window metrics as numpy arrays with the reference's dtypes."""
-    return {k: to_numpy(torch.stack([getattr(m, k) for m in ys]), k)
-            for k in WindowMetrics._fields}
+def _clone_tree(x):
+    """A copy of every tensor leaf of a tree (other leaves shared)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [_clone_tree(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _copy_tree_(dst, src) -> None:
+    """Copy every tensor leaf of ``src`` into the same leaf of ``dst``, in
+    place, device to device; a leaf that already is its target is
+    skipped."""
+    if isinstance(dst, torch.Tensor):
+        if src is not dst:
+            dst.copy_(src)
+    elif isinstance(dst, tuple):
+        for d, v in zip(dst, src, strict=True):
+            _copy_tree_(d, v)
+
+
+def _write_row_(bufs, row, idx: torch.Tensor):
+    """``bufs[i][idx] = row[i]`` for every leaf, at a device index."""
+    for b, v in zip(bufs, row, strict=True):
+        b.index_copy_(0, idx, v[None])
+
+
+def _rows(tree, cap: int):
+    """Zeroed ``[cap, ...]`` buffers shaped like the leaves of ``tree``."""
+    return type(tree)(*(torch.zeros((cap,) + v.shape, dtype=v.dtype,
+                                    device=v.device) for v in tree))
+
+
+class CompiledChunk:
+    """The port's counterpart of the reference's compiled chunks,
+    ``compiled_chunk`` and ``compiled_controller_chunk``: ``n`` windows,
+    or ``n_periods`` control-plane periods, over buffers the chunk owns.
+
+    One window is a plain function of those buffers (:meth:`window_body`):
+    ``window_step`` on the chunk's carry, every leaf of the new carry
+    copied back into it, the window's metrics written at a device index,
+    the index advanced.  A period boundary is another
+    (:meth:`period_body`: ``controller_window_apply``, the carry and
+    ``active_size`` copied back, the ``TracedUpdate`` written at a period
+    index).  With ``graphs`` each body is captured once as a CUDA graph and
+    a chunk replays it; without, a chunk calls it (the CPU path, and the
+    card's when the caller asks).  Inside a chunk the host neither reads
+    nor copies anything.
+
+    * Host changes between chunks are seen: at each chunk start the
+      caller's carry and workload arrays are copied into the chunk's
+      buffers, device to device, wherever they are not those buffers.
+    * The chunk reuses the carry's memory (the reference donates it): the
+      carry a chunk returns IS the chunk's buffers, and the next chunk
+      overwrites them.  Clone it to keep it.
+    * A graph is captured after one warm-up call of its body, whose effect
+      (carry, draws, counters, launch counts) is undone, and again when
+      its key changes: the kernel backend, the draw source, the controller
+      config or a larger chunk than the buffers hold.  A capture that
+      fails raises.
+    * ``repro_torch.kernels.LAUNCHES`` counts the kernels a graph captured
+      once per replay.
+    """
+
+    def __init__(self, cfg: RackConfig, server_cfg: ServerConfig,
+                 client_cfg: cl.ClientConfig, key_size: int, device,
+                 graphs: bool):
+        self.cfg, self.server_cfg, self.client_cfg = cfg, server_cfg, \
+            client_cfg
+        self.key_size = key_size
+        self.device = device
+        self.graphs = graphs
+        self.carry = self.wl = self.metrics = self.updates = None
+        self.ctrl_cfg = None
+        self.w_idx = torch.zeros(1, dtype=torch.int64, device=device)
+        self.p_idx = torch.zeros(1, dtype=torch.int64, device=device)
+        self.active = torch.zeros((), dtype=I32, device=device)
+        self.w_cap = self.p_cap = 0
+        self._graphs: dict[str, tuple] = {}   # name -> (key, graph, counts)
+        self.capture_seconds = 0.0            # warm-ups and captures
+        self.captures = 0
+        self.graph_bytes: dict[str, int] = {}  # memory reserved by capture
+
+    # -- the bodies ---------------------------------------------------------
+    def window_body(self) -> None:
+        new, m = window_step(self.cfg, self.server_cfg, self.client_cfg,
+                             self.key_size, self.wl, self.carry)
+        _copy_tree_(self.carry, new)
+        if self.metrics is None:
+            self.metrics = _rows(m, self.w_cap)
+        _write_row_(self.metrics, m, self.w_idx)
+        self.w_idx += 1
+
+    def period_body(self) -> None:
+        new, act, upd, _ = controller_window_apply(
+            self.cfg, self.ctrl_cfg, self.wl, self.carry, self.active)
+        _copy_tree_(self.carry, new)
+        _copy_tree_(self.active, act)
+        if self.updates is None:
+            self.updates = _rows(upd, self.p_cap)
+        _write_row_(self.updates, upd, self.p_idx)
+        self.p_idx += 1
+
+    # -- chunks -------------------------------------------------------------
+    def __call__(self, wl: WorkloadArrays, carry: SimCarry, n: int,
+                 ) -> tuple[SimCarry, WindowMetrics]:
+        """``n`` windows: ``(carry', metrics [n, ...])``, both the chunk's
+        buffers."""
+        self._start(wl, carry, n, 0)
+        self._run("window", self.window_body, n)
+        return self.carry, WindowMetrics(*(b[:n] for b in self.metrics))
+
+    def controller_chunk(self, wl: WorkloadArrays, carry: SimCarry,
+                         active_size: int, ctrl_cfg: ControllerConfig,
+                         n_periods: int, period_w: int):
+        """``n_periods`` periods of ``period_w`` windows, each followed by
+        the cache update: ``(carry', active_size' int32[], metrics
+        [n_periods * period_w, ...], TracedUpdate [n_periods, ...])``."""
+        if ctrl_cfg != self.ctrl_cfg:
+            self._graphs.pop("period", None)
+            self.ctrl_cfg = ctrl_cfg
+        self._start(wl, carry, n_periods * period_w, n_periods)
+        self.active.fill_(active_size)
+        for _ in range(n_periods):
+            self._run("window", self.window_body, period_w)
+            self._run("period", self.period_body, 1)
+        n = n_periods * period_w
+        return (self.carry, self.active,
+                WindowMetrics(*(b[:n] for b in self.metrics)),
+                TracedUpdate(*(b[:n_periods] for b in self.updates)))
+
+    def _start(self, wl, carry, n_windows: int, n_periods: int) -> None:
+        if n_windows < 1:
+            raise ValueError(f"a chunk runs at least one window, not "
+                             f"{n_windows}")
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not "
+                             f"{self.device}")
+        carry.draws.reserve(n_windows)
+        if self.carry is None:
+            self.carry, self.wl = _clone_tree(carry), _clone_tree(wl)
+        else:
+            _copy_tree_(self.carry, carry)
+            _copy_tree_(self.wl, wl)
+            self.carry = self.carry._replace(draws=carry.draws)
+        if n_windows > self.w_cap:
+            self.w_cap, self.metrics = n_windows, None
+            self._graphs.pop("window", None)
+        if n_periods > self.p_cap:
+            self.p_cap, self.updates = n_periods, None
+            self._graphs.pop("period", None)
+        self.w_idx.zero_()
+        self.p_idx.zero_()
+
+    def _run(self, name: str, body, n: int) -> None:
+        if not self.graphs:
+            for _ in range(n):
+                body()
+            return
+        key = (kn.kernel_backend(self.device), self.carry.draws)
+        got = self._graphs.get(name)
+        if got is None or got[0] != key:    # draw sources compare by id
+            got = self._graphs[name] = (key, *self._capture(name, body))
+        _, graph, counts = got
+        for _ in range(n):
+            graph.replay()
+        for k, v in counts.items():
+            kn.LAUNCHES[k] += v * n
+
+    def _capture(self, name: str, body):
+        """Warm up ``body`` once and undo it, then capture it: ``(graph,
+        kernel launches per replay)``."""
+        t0 = time.perf_counter()
+        draws = self.carry.draws
+        saved = (_clone_tree(self.carry), draws.get_state(),
+                 self.active.clone(), self.w_idx.clone(), self.p_idx.clone(),
+                 dict(kn.LAUNCHES))
+        body()
+        _copy_tree_((self.carry, self.active, self.w_idx, self.p_idx),
+                    (saved[0], *saved[2:5]))
+        draws.set_state(saved[1])
+        graph = torch.cuda.CUDAGraph()
+        if name == "window" and isinstance(draws, cl.TorchDraws):
+            graph.register_generator_state(draws.gen)
+        before = dict(kn.LAUNCHES)
+        with torch.cuda.graph(graph):
+            reserved = torch.cuda.memory_reserved(self.device)
+            body()
+        counts = {k: kn.LAUNCHES[k] - before[k] for k in before}
+        kn.LAUNCHES.update(saved[5])
+        self.graph_bytes[name] = (torch.cuda.memory_reserved(self.device)
+                                  - reserved)
+        self.capture_seconds += time.perf_counter() - t0
+        self.captures += 1
+        return graph, counts
+
+
+def compiled_chunk(cfg: RackConfig, server_cfg: ServerConfig,
+                   client_cfg: cl.ClientConfig, key_size: int, device,
+                   graphs: bool | None = None) -> CompiledChunk:
+    """A simulator's chunk (:class:`CompiledChunk`); ``graphs`` defaults
+    to CUDA graphs on a CUDA device, and asking for them elsewhere
+    raises."""
+    device = torch.device(device)
+    if graphs is None:
+        graphs = device.type == "cuda"
+    if graphs and device.type != "cuda":
+        raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+    return CompiledChunk(cfg, server_cfg, client_cfg, key_size, device,
+                         graphs)
 
 
 @dataclass
@@ -496,11 +707,12 @@ class RackSimulator:
 
     ``device`` defaults to the CUDA card; ``draws`` defaults to a
     :class:`~repro_torch.kvstore.client.TorchDraws` seeded from
-    ``cfg.seed``.
+    ``cfg.seed``.  On the card a chunk replays CUDA graphs unless
+    ``graphs=False`` (:class:`CompiledChunk`).
     """
 
     def __init__(self, cfg: RackConfig, wl: Workload, device=None,
-                 draws=None):
+                 draws=None, graphs: bool | None = None):
         self.cfg = cfg
         self.wl = wl
         self.device = resolve_device(device)
@@ -517,6 +729,8 @@ class RackSimulator:
         self.carry = init_carry(
             cfg, self.server_cfg, self.client_cfg, wl.cfg.num_keys,
             wl.cfg.offered_rps, wl.cfg.write_ratio, draws, self.device)
+        self.chunk = compiled_chunk(cfg, self.server_cfg, self.client_cfg,
+                                    self.key_size, self.device, graphs)
 
     def set_offered(self, rps: float) -> None:
         self.carry = self.carry._replace(offered=torch.tensor(
@@ -561,16 +775,11 @@ class RackSimulator:
             fetch=build_fetch_batch(self.cfg, self.wl.vlen, fetches))
 
     def run_windows(self, n: int) -> dict[str, np.ndarray]:
-        """Step ``n`` windows; returns the per-window metrics as numpy
-        arrays with the reference's dtypes."""
-        wl = self.wl.arrays
-        carry, ys = self.carry, []
-        for _ in range(n):
-            carry, m = window_step(self.cfg, self.server_cfg, self.client_cfg,
-                                   self.key_size, wl, carry)
-            ys.append(m)
-        self.carry = carry
-        return _stack_metrics(ys)
+        """Step ``n`` windows as one chunk; returns the per-window metrics
+        as numpy arrays with the reference's dtypes.  ``self.carry`` then
+        is the chunk's buffers (see :class:`CompiledChunk`)."""
+        self.carry, m = self.chunk(self.wl.arrays, self.carry, n)
+        return to_numpy(m)._asdict()
 
     def run_periods(self, n_periods: int,
                     period_w: int) -> dict[str, np.ndarray]:
@@ -578,24 +787,12 @@ class RackSimulator:
         windows each, the cache update on the device after each period.
         The host reads ``active_size`` and the period updates
         (``_last_update``, stacked per period) once, at the end."""
-        wl = self.wl.arrays
-        act = torch.tensor(self.controller.active_size, dtype=I32,
-                           device=self.device)
-        carry, ys, upds = self.carry, [], []
-        for _ in range(n_periods):
-            for _ in range(period_w):
-                carry, m = window_step(self.cfg, self.server_cfg,
-                                       self.client_cfg, self.key_size, wl,
-                                       carry)
-                ys.append(m)
-            carry, act, upd, _ = controller_window_apply(
-                self.cfg, self.controller.cfg, wl, carry, act)
-            upds.append(upd)
-        self.carry = carry
+        self.carry, act, m, upds = self.chunk.controller_chunk(
+            self.wl.arrays, self.carry, self.controller.active_size,
+            self.controller.cfg, n_periods, period_w)
         self.controller.active_size = int(act)
-        self._last_update = to_numpy(TracedUpdate(
-            *(torch.stack(x) for x in zip(*upds))))
-        return _stack_metrics(ys)
+        self._last_update = to_numpy(upds)
+        return to_numpy(m)._asdict()
 
     def run(self, sim_seconds: float, chunk_windows: int = 256,
             controller_period_s: float | None = None,

@@ -5,7 +5,8 @@
   their constants (``62 + key_size``, ``window * 1e-6 / subrounds``,
   ``1e6 / rate``); the port must reproduce the compiled values bit for bit.
 * ``torch.log2`` and ``jnp.log2`` round differently for some float32
-  inputs; the latency bucket may only differ next to a bucket edge.
+  inputs; the latency bucket may only differ next to a bucket edge, and
+  it must not depend on the number of CPU threads.
 * The port imports neither ``jax`` nor the reference package.
 """
 import ast
@@ -77,6 +78,29 @@ def test_lat_bucket_differs_only_at_edges():
     assert np.all(near[diff]), lat[diff & ~near][:10]
     print(f"lat_bucket: {int(diff.sum())} of {lat.size} latencies bucketed "
           f"differently, all within 4 ulp of an edge")
+
+
+def test_lat_bucket_same_under_thread_counts():
+    """The port's buckets of the 10^6 latencies above are identical under
+    1, 2 and 6 CPU threads, and equal floor(4 * log2(x)) with the float32
+    log2 correctly rounded (numpy's float64 log2, rounded once)."""
+    rng = np.random.default_rng(0)
+    lat = np.concatenate([
+        (rng.random(500_000) * 5000).astype(np.float32),
+        np.float32(0.25) * np.exp2(rng.integers(0, 80, 500_000) / 4.0
+                                   ).astype(np.float32),
+    ]).astype(np.float32)
+    x = np.maximum(lat, np.float32(0.25)) / np.float32(0.25)
+    want = np.clip((np.float32(4.0) * np.log2(x.astype(np.float64))
+                    .astype(np.float32)).astype(np.int32), 0, 79)
+    threads = torch.get_num_threads()
+    try:
+        for n in (1, 2, 6):
+            torch.set_num_threads(n)
+            got = tcl.lat_bucket(torch.from_numpy(lat)).numpy()
+            np.testing.assert_array_equal(got, want, err_msg=f"{n} threads")
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _imports(path):
