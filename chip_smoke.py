@@ -31,11 +31,11 @@ line; any failure exits non-zero:
    keys, C = 128, 32 servers, 4M rps offered): preload the 128 hottest
    keys, run 1,000 windows through ``RackSimulator.run``, each window a
    replay of a CUDA graph (the simulator's default on the card), check
-   that every subround launched the kernel once, then replay the same
-   draws from the same carry with the plain version (eager chunks) and
-   require every carry leaf and every metric to be equal; then the first
-   500 windows again, graphed and as eager chunks on the kernel path
-   (``graphs=False``), equal in every carry leaf and metric, and 25
+   that every subround launched the kernel once; then the first 250
+   windows again, graphed and as eager chunks on the kernel path
+   (``graphs=False``), equal in every carry leaf and metric, and the
+   same 250 windows replayed with the plain version (eager chunks), equal
+   in every carry leaf and metric to the graphed run, and 25
    windows profiled each way (``graphed_vs_eager``: windows/s, device ms
    per window and the device's idle share of each run, the graphs'
    capture seconds and pool memory; where the profiler sees no kernel of
@@ -47,11 +47,10 @@ line; any failure exits non-zero:
    phases 2 and 3, the cadence of Fig. 18, graphed (a window graph and a
    period graph).  Every window must launch 4 subround kernels and 1
    count-min kernel, every period 3 hot_gather kernels, and no plain
-   version may run; the replay under the plain versions must equal it in
-   every carry leaf, metric and period update; the three phases cut to
-   200 windows (2 periods) each, with both swaps, graphed and as eager
-   chunks on the kernel path, must be equal too (``graphed_vs_eager``, a
-   period profiled each way).  Then one period from the start again
+   version may run; the three phases cut to 100 windows (1 period)
+   each, with both swaps, graphed and as eager chunks on the kernel path,
+   must be equal (``graphed_vs_eager``, a period profiled each way), and
+   so must their replay under the plain versions.  Then one period from the start again
    (eager), recording the three input sets of its ``_merge_scores`` call;
    each is held against the plain version and timed
    (``hot_gather_live``);
@@ -69,7 +68,30 @@ line; any failure exits non-zero:
    every carry leaf and metric equal;
 8. ``no_sync``, after each of the cells above: 8 windows (a period on the
    control plane) as an eager chunk and as graph replays, each under
-   ``torch.cuda.set_sync_debug_mode("error")``.
+   ``torch.cuda.set_sync_debug_mode("error")``;
+9. the batched kernels of the fleet (``kvstore/fleet.py``), each against
+   its plain version once per point over fuzz cases, shared inputs
+   included (``*_batched_vs_plain``), and timed at P = 1, 4 and 12 points
+   a launch beside P x the single launch's device time;
+10. ``fleet_staircase``: ``BatchedRackSimulator`` with 12 OrbitCache
+   points at 0.5 ... 6.0 M rps (seeds 0-11, every workload leaf
+   shared), preloaded, ``reset_stats``, ``run(0.03)``
+   (``knee_throughput_parallel``'s run: 256 windows, the reference's
+   chunk rule), 4 subround launches a fleet window for all points; each
+   point equal to a serial graphed rack of its seed and load in every
+   carry leaf and metric; per point rx, loss, worst server's drop share,
+   p99 and the knee; 16 windows from the same start graphed, eager and
+   under the plain versions, all equal; ``no_sync``;
+11. ``fleet_control_plane``: 4 seeds with tracking on, the three phases
+   of phase 5 with ``refresh_workloads`` after each swap; per fleet window
+   4 subround and 1 count-min launch, per period 3 hot_gather launches;
+   each point equal to the serial control-plane rack of its seed in every
+   carry leaf, metric, period update and ``active_size``; one period
+   graphed, eager and under the plain versions, equal; ``no_sync``;
+12. ``fleet_skew``: Zipf 0.9, 0.95 and 0.99 (the CDF stacked, each
+   point's hot set) for OrbitCache, NetCache (each point's 10,000 hottest
+   keys) and NoCache, ``run(0.03)`` each, every point equal to its serial
+   rack; NetCache and NoCache launch no kernel.
 
 The line before the last two is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback.
@@ -96,10 +118,11 @@ FUZZ_CASES = 200
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 SCALAR_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 CP_PHASES, CP_PHASE_S, CP_PERIOD_S, CP_SWAP = 3, 0.05, 0.01, 128
-# depth of the graphed-against-eager comparison, cut to keep the script's
-# time: the main path's first 500 windows, the control plane's three
-# phases and two swaps at 200 windows (2 periods) a phase
-EAGER_WINDOWS, CP_EAGER_S = 500, 0.02
+# depth of the graphed-against-eager comparison and the plain replays,
+# cut to keep the script's time: the main path's first 250 windows, the
+# control plane's three phases and two swaps at 100 windows (1 period) a
+# phase
+EAGER_WINDOWS, CP_EAGER_S = 250, 0.01
 SCHEME_S, SCHEME_CHECK_WINDOWS = 0.05, 64
 BF16_TOL = 2e-2               # tests/test_kernels.py's bf16 hot_gather bound
 
@@ -259,7 +282,7 @@ def graphed_and_eager(cell, sim, drive, rewind):
     ``rewind()`` as eager chunks on the kernel path (``graphs=False``):
     every output (``drive`` returns a list of dicts of numpy arrays) and
     every carry leaf must be equal.  Returns ``(graphed wall s, eager wall
-    s, equal leaves, equal outputs)``."""
+    s, equal leaves, equal outputs, (graphed outputs, graphed carry))``."""
     from repro_torch.interop import to_numpy
 
     runs = []
@@ -283,7 +306,38 @@ def graphed_and_eager(cell, sim, drive, rewind):
                                      f"differ in output {i} {k}")
             n_out += 1
     n_leaves = compare_trees(carry_g, carry_e, f"{cell} carry")
-    return wall_g, wall_e, n_leaves, n_out
+    return wall_g, wall_e, n_leaves, n_out, (got, carry_g)
+
+
+def plain_replay(cell, sim, drive, rewind, graphed):
+    """``drive()`` from ``rewind()`` under the plain versions (eager
+    chunks, so that every plain call is counted): every output and carry
+    leaf must equal ``graphed`` (the kernel run's ``(outputs, carry)``).
+    Returns ``(wall s, equal leaves, equal outputs)``."""
+    from repro_torch import kernels as kn
+    from repro_torch.interop import to_numpy
+
+    rewind()
+    kn.set_kernel_backend("ref")
+    sim.chunk.graphs = False
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = drive()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        kn.set_kernel_backend(None)
+        sim.chunk.graphs = True
+    n_out = 0
+    for i, (g, w) in enumerate(zip(graphed[0], out, strict=True)):
+        for k, v in g.items():
+            if v.dtype != w[k].dtype or not np.array_equal(v, w[k]):
+                raise AssertionError(f"{cell}: the plain replay differs in "
+                                     f"output {i} {k}")
+            n_out += 1
+    return wall, compare_trees(graphed[1], to_numpy(sim.carry),
+                               f"{cell} replay carry"), n_out
 
 
 def graph_stats(sim):
@@ -974,7 +1028,6 @@ def counting_plain_versions():
 def run_main_path(dev):
     from repro_torch import kernels as kn
     from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
-    from repro_torch.interop import to_numpy
     from repro_torch.kvstore.simulator import RackSimulator
     from repro_torch.kvstore.workload import Workload
 
@@ -1008,7 +1061,6 @@ def run_main_path(dev):
         if any(plain_calls.values()):
             raise AssertionError(f"plain versions ran on the kernel path: "
                                  f"{plain_calls}")
-        cuda_carry = to_numpy(sim.carry)
         rx_sw = res.traces["rx_switch"].astype(np.int64).sum()
         rx_srv = res.traces["rx_server"].astype(np.int64).sum()
         phase("main_path", windows=n_win, seconds=round(wall, 3),
@@ -1025,41 +1077,26 @@ def run_main_path(dev):
         if not res.throughput_rps() > 0 or not rx_sw > 0:
             raise AssertionError("the rack served nothing")
 
-        # the same draws from the same carry, through the plain version
-        # (eager, so that every plain call is counted)
-        sim.carry = clone_tree(start)
-        sim.carry.draws.set_state(gen_state)
-        kn.set_kernel_backend("ref")
-        sim.chunk.graphs = False
-        try:
-            t0 = time.perf_counter()
-            res_ref = sim.run(seconds, chunk_windows=WINDOWS // 4)
-            torch.cuda.synchronize()
-            wall_ref = time.perf_counter() - t0
-        finally:
-            kn.set_kernel_backend(None)
-            sim.chunk.graphs = True
-        if plain_calls["subround"] != RACK.subrounds * WINDOWS:
-            raise AssertionError(f"plain replay ran {plain_calls} calls")
-        for k, v in res.traces.items():
-            if not np.array_equal(v, res_ref.traces[k]):
-                raise AssertionError(f"replay differs in metric {k}")
-        ref_carry = to_numpy(sim.carry)
-        n_leaves = compare_trees(cuda_carry, ref_carry, "carry")
-        phase("replay_plain", windows=len(res_ref.traces["tx"]),
-              seconds=round(wall_ref, 3), equal_leaves=n_leaves,
-              equal_metrics=len(res.traces))
-
     def rewind():
         sim.carry = clone_tree(start)
         sim.carry.draws.set_state(gen_state)
 
+    def drive():
+        return [sim.run(EAGER_WINDOWS * RACK.window_us * 1e-6,
+                        chunk_windows=WINDOWS // 4).traces]
+
     # graphed against eager chunks on the kernel path, over the first
     # EAGER_WINDOWS windows (the eager side is the slow one)
-    wall_g, wall_e, n_leaves, n_out = graphed_and_eager(
-        "orbitcache", sim,
-        lambda: [sim.run(EAGER_WINDOWS * RACK.window_us * 1e-6,
-                         chunk_windows=WINDOWS // 4).traces], rewind)
+    wall_g, wall_e, n_leaves, n_out, graphed = graphed_and_eager(
+        "orbitcache", sim, drive, rewind)
+    # the same draws from the same carry through the plain version
+    with counting_plain_versions() as plain_calls:
+        wall_ref, n_ref, n_out_ref = plain_replay("orbitcache", sim, drive,
+                                                  rewind, graphed)
+    if plain_calls["subround"] != RACK.subrounds * EAGER_WINDOWS:
+        raise AssertionError(f"plain replay ran {plain_calls} calls")
+    phase("replay_plain", windows=EAGER_WINDOWS, seconds=round(wall_ref, 3),
+          equal_leaves=n_ref, equal_metrics=n_out_ref)
 
     # what the profiler sees of a short run, eager then graphed
     prof_windows = 25
@@ -1111,7 +1148,6 @@ def run_control_plane(dev):
     """The periodic control plane at the paper's scale (module docstring,
     phase 5).  Returns the launches of each kernel in the run."""
     from repro_torch import kernels as kn
-    from repro_torch.interop import to_numpy
 
     sim, wl, period_w = control_plane_rack(dev)
     rack = sim.cfg
@@ -1157,7 +1193,6 @@ def run_control_plane(dev):
         if any(plain_calls.values()):
             raise AssertionError(f"plain versions ran on the kernel path: "
                                  f"{plain_calls}")
-        cuda_carry = to_numpy(sim.carry)
         act_cuda = sim.controller.active_size
         win_s = rack.window_us * 1e-6
         ppp = n_periods // CP_PHASES      # periods per phase
@@ -1187,36 +1222,6 @@ def run_control_plane(dev):
             raise AssertionError("the controller inserted nothing after "
                                  "the churn")
 
-        # the same draws, carry and workload through the plain versions
-        # (eager, so that every plain call is counted)
-        rewind()
-        kn.set_kernel_backend("ref")
-        sim.chunk.graphs = False
-        try:
-            t0 = time.perf_counter()
-            results_ref, updates_ref = drive()
-            torch.cuda.synchronize()
-            wall_ref = time.perf_counter() - t0
-        finally:
-            kn.set_kernel_backend(None)
-            sim.chunk.graphs = True
-        if (plain_calls["subround"], plain_calls["cms"],
-                plain_calls["hot_gather"]) != tuple(want.values()):
-            raise AssertionError(f"plain replay ran {plain_calls} calls")
-        for res, res_ref in zip(results, results_ref):
-            for k, v in res.traces.items():
-                if not np.array_equal(v, res_ref.traces[k]):
-                    raise AssertionError(f"control-plane replay differs in "
-                                         f"metric {k}")
-        n_leaves = compare_trees(cuda_carry, to_numpy(sim.carry), "carry")
-        n_upd = sum(compare_trees(u, u_ref, f"update {i}") for i, (u, u_ref)
-                    in enumerate(zip(updates, updates_ref)))
-        if sim.controller.active_size != act_cuda:
-            raise AssertionError("replay differs in active_size")
-        phase("control_plane_replay_plain", windows=n_win,
-              seconds=round(wall_ref, 3), equal_leaves=n_leaves,
-              equal_metrics=len(results[0].traces) * len(results),
-              equal_update_leaves=n_upd)
 
     # graphed against eager chunks on the kernel path: the three phases
     # and both swaps, each phase cut to CP_EAGER_S
@@ -1225,9 +1230,20 @@ def run_control_plane(dev):
         return ([r.traces for r in results] + [u._asdict() for u in updates]
                 + [dict(active_size=np.array(sim.controller.active_size))])
 
-    wall_g, wall_e, n_leaves, n_out = graphed_and_eager(
+    wall_g, wall_e, n_leaves, n_out, graphed = graphed_and_eager(
         "control_plane", sim, outputs, rewind)
     n_cmp = CP_PHASES * int(round(CP_EAGER_S / (rack.window_us * 1e-6)))
+    # the same draws, carry and workload through the plain versions
+    with counting_plain_versions() as plain_calls:
+        wall_ref, n_ref, n_out_ref = plain_replay(
+            "control_plane", sim, outputs, rewind, graphed)
+    want_plain = (rack.subrounds * n_cmp, n_cmp, 3 * (n_cmp // period_w))
+    if (plain_calls["subround"], plain_calls["cms"],
+            plain_calls["hot_gather"]) != want_plain:
+        raise AssertionError(f"plain replay ran {plain_calls} calls")
+    phase("control_plane_replay_plain", windows=n_cmp,
+          periods=n_cmp // period_w, seconds=round(wall_ref, 3),
+          equal_leaves=n_ref, equal_outputs=n_out_ref)
 
     # what the profiler sees of one period, eager then graphed
     rewind()
@@ -1369,7 +1385,7 @@ def run_schemes(dev):
             sim.carry = clone_tree(start)
             sim.carry.draws.set_state(gen_state)
 
-        wall_g, wall_e, n_leaves, n_out = graphed_and_eager(
+        wall_g, wall_e, n_leaves, n_out, _ = graphed_and_eager(
             scheme, sim,
             lambda: [sim.run(SCHEME_S, chunk_windows=n_win).traces], rewind)
         prof_windows = 25
@@ -1416,6 +1432,702 @@ def run_schemes(dev):
               equal_metrics=len(m_dev), cpu_seconds=round(cpu_s, 3),
               hits=int(m_dev["hits"].astype(np.int64).sum()),
               forwarded=int(m_dev["fwd"].astype(np.int64).sum()))
+
+
+# --------------------------------------------------------------------------
+# the fleet: batched kernels, then the three fleet cells
+# --------------------------------------------------------------------------
+FLEET_P = (1, 4, 12)          # points per batched launch, timed
+FLEET_FUZZ = 8                # fuzz cases per kernel, P and sharing
+# benchmarks/common.py DEFAULT_LOADS: the staircase of Fig. 11's curve
+STAIRCASE_LOADS = tuple(0.5e6 * (i + 1) for i in range(12))
+STAIRCASE_S = 0.03            # knee_throughput_parallel's seconds
+FLEET_CP_POINTS = 4           # fig18_dynamic_batched's seeds
+SKEW_ALPHAS = (0.9, 0.95, 0.99)   # Fig. 9's quick skew sweep
+SKEW_S = 0.03
+FLEET_CHECK_WINDOWS = 16      # plain and eager replays of the staircase
+
+
+def stack_points(per, shared):
+    """P argument lists -> one list, each argument stacked on a leading
+    point axis, or point 0's where its index is in ``shared``; and the
+    batched flags."""
+    args = [per[0][k] if k in shared else torch.stack([x[k] for x in per])
+            for k in range(len(per[0]))]
+    return args, [k not in shared for k in range(len(per[0]))]
+
+
+def point_args(args, batched, i):
+    return [a[i] if bt else a for a, bt in zip(args, batched)]
+
+
+def nbytes_of(*tensors):
+    """Bytes of the tensors: each input read once (a shared one once for
+    all points) and each output written once."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def batched_times(single_us, launch_for):
+    """``device_us`` of one batched launch at each P of ``FLEET_P`` beside
+    P x the single launch's, with the bound of the batch's bytes;
+    ``launch_for(p)`` gives ``(bytes, launch(stream))``."""
+    rows = []
+    for p in FLEET_P:
+        nbytes, launch = launch_for(p)
+        us, method = device_timed(launch)
+        rows.append(dict(p=p, device_us=us, device_timing=method,
+                         p_x_single_us=p * single_us, **bound(nbytes, 0)))
+    return rows
+
+
+SR_SHARING = {"none": (), "tables": tuple(range(12, 30)),
+              "lanes": tuple(range(12)), "budget": (30,)}
+
+
+def check_subround_batched(dev):
+    """The batched subround (one launch of P blocks) against the plain
+    version once per point, over fuzz cases at two shapes with each
+    sharing; then its device time at the paper's shape for P = 1, 4, 12
+    (no input shared, as the fleet's) beside P x the serial launch's."""
+    from repro_torch.kernels.subround import kernel
+    from repro_torch.kernels.subround.ops import (
+        SubroundOuts, subround, subround_batched,
+    )
+    from repro_torch.kernels.subround.ref import subround_ref
+
+    def tensors(seed, shape, **kw):
+        b, c, s, f, _ = shape
+        return [torch.from_numpy(np.array(a)).to(dev)
+                for a in subround_case(seed, b, c, s, f, **kw)]
+
+    n_cases, max_err = 0, 0.0
+    for shape in (FUZZ_SHAPES[1], PAPER):
+        b, c, s, f, j = shape
+        for p in FLEET_P:
+            for k, shared in enumerate(SR_SHARING.values()):
+                for r in range(FLEET_FUZZ // 4):
+                    seed = 9000 + 100 * p + 10 * k + r
+                    per = [tensors(seed + i, shape) for i in range(p)]
+                    args, batched = stack_points(per, shared)
+                    got = subround_batched(args, batched, p, s, f, j)
+                    for i in range(p):
+                        want = subround_ref(*point_args(args, batched, i),
+                                            queue_size=s, max_frags=f,
+                                            max_serves=j)
+                        for name, g, w in zip(SubroundOuts._fields, got,
+                                              want):
+                            max_err = max(max_err, max_abs_err(g[i], w))
+                            if not torch.equal(g[i], w):
+                                raise AssertionError(
+                                    f"batched subround != plain at {name} "
+                                    f"(shape {shape}, P={p}, shared {k}, "
+                                    f"point {i})")
+                    n_cases += 1
+    b, c, s, f, j = PAPER
+    one = tensors(7, PAPER, budget=1000)
+    outs = subround(*one, s, f, j)
+    ptrs = ([a.data_ptr() for a in one[:-1]] + [one[-1].reshape(1).data_ptr()]
+            + [o.data_ptr() for o in outs])
+    single_us, _ = device_timed(
+        lambda st: kernel.launch(ptrs, b, c, s, f, j, st))
+
+    def launch_for(p):
+        per = [tensors(7 + i, PAPER, budget=1000) for i in range(p)]
+        args, batched = stack_points(per, ())
+        got = subround_batched(args, batched, p, s, f, j)
+        bptrs = ([a.data_ptr() for a in args] + [o.data_ptr() for o in got])
+        strides = ([a[0].numel() for a in args]
+                   + [o[0].numel() for o in got])
+
+        def launch(st, held=(args, got)):    # the tensors outlive the call
+            if p == 1 and not launch_for.template:   # the wrapper's choice
+                kernel.launch(bptrs, b, c, s, f, j, st)
+            else:
+                kernel.launch_batched(bptrs, strides, p, b, c, s, f, j, st)
+        return nbytes_of(*args, *got), launch
+    launch_for.template = False
+    times = batched_times(single_us, launch_for)
+    # the batched kernel itself at P = 1, which the wrapper does not launch
+    launch_for.template = True
+    template_p1_us, _ = device_timed(launch_for(1)[1])
+    return n_cases, max_err, dict(single_device_us=single_us, shape=PAPER,
+                                  batched=times,
+                                  batched_kernel_p1_device_us=template_p1_us)
+
+
+def check_cms_batched(dev):
+    """The batched count-min (P x 32 sketches, row indices per point or
+    shared) against the plain version once per point; then its device
+    time at the rack's shape for P = 1, 4, 12 beside P x the single
+    launch's."""
+    from repro_torch.kernels.cms import kernel
+    from repro_torch.kernels.cms.ops import (
+        tile_for, update_query, update_query_batched,
+    )
+    from repro_torch.kernels.cms.ref import cms_update_query_fast
+
+    n_cases, max_err = 0, 0.0
+    for n, b, w, blk in ((4, 257, 64, 32), (*CMS_PAPER, 256)):
+        tile = tile_for(b, blk)
+        for p in FLEET_P:
+            for shared in ((), (0,)):
+                per = [cms_case(700 + 10 * p + i, n, b, w, 1 / 8, dev)
+                       for i in range(p)]
+                (idx, mask, counts), _ = stack_points(per, shared)
+                got = update_query_batched(idx, mask, counts, tile)
+                for i in range(p):
+                    want = cms_update_query_fast(
+                        idx if shared else idx[i], mask[i], counts[i],
+                        block_b=tile)
+                    for g, wt in zip(got, want):
+                        max_err = max(max_err, max_abs_err(g[i], wt))
+                        if not torch.equal(g[i], wt):
+                            raise AssertionError(
+                                f"batched cms != plain (n={n} b={b} P={p} "
+                                f"shared idx {bool(shared)}, point {i})")
+                n_cases += 1
+    n, b, w = CMS_PAPER
+    tile = tile_for(b)
+    idx, mask, counts = cms_case(7, n, b, w, 1 / 32, dev)
+    out, est = update_query(idx, mask, counts, tile)
+    single_us, _ = device_timed(lambda st: kernel.launch(
+        idx.data_ptr(), mask.data_ptr(), counts.data_ptr(), out.data_ptr(),
+        est.data_ptr(), n, b, w, tile, st))
+
+    def launch_for(p):
+        per = [cms_case(7 + i, n, b, w, 1 / 32, dev) for i in range(p)]
+        (pidx, pmask, pcounts), _ = stack_points(per, ())
+        pout, pest = update_query_batched(pidx, pmask, pcounts, tile)
+        return nbytes_of(pidx, pmask, pcounts, pout, pest), \
+            lambda st: kernel.launch_batched(
+                pidx.data_ptr(), b * 5, n, pmask.data_ptr(),
+                pcounts.data_ptr(), pout.data_ptr(), pest.data_ptr(), p * n,
+                b, w, tile, st)
+    times = batched_times(single_us, launch_for)
+    return n_cases, max_err, dict(single_device_us=single_us,
+                                  shape=dict(n=n, b=b, w=w), batched=times)
+
+
+HG_SHARING = {"none": (), "ids": (0,), "hot": (1,), "rows": (2,)}
+
+
+def check_hot_gather_batched(dev):
+    """The batched hot_gather (grid z = P) against the plain version once
+    per point, at the controller's three call shapes with each sharing
+    (the third call's zero rows are shared by every point); then its
+    device time at each shape for P = 1, 4, 12 (the third with shared
+    rows, as the fleet's) beside P x the single launch's."""
+    from repro_torch.kernels.hot_gather import kernel
+    from repro_torch.kernels.hot_gather.ops import (
+        hot_gather, hot_gather_batched,
+    )
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+
+    n_cases, max_err = 0, 0.0
+    for b, c, d in HG_CALLS + ((300, 200, 3),):
+        for p in FLEET_P:
+            for k, shared in enumerate(HG_SHARING.values()):
+                per = [hg_case(500 + 10 * p + k + i, b, c, d, torch.int32,
+                               True, dev) for i in range(p)]
+                args, batched = stack_points(per, shared)
+                got = hot_gather_batched(*args, p)
+                for i in range(p):
+                    want = hot_gather_ref(*point_args(args, batched, i))
+                    for g, w in zip(got, want):
+                        max_err = max(max_err, max_abs_err(g[i], w))
+                        if not torch.equal(g[i], w):
+                            raise AssertionError(
+                                f"batched hot_gather != plain (b={b} c={c} "
+                                f"P={p} shared {k}, point {i})")
+                n_cases += 1
+    calls = []
+    for call, (b, c, d) in enumerate(HG_CALLS):
+        shared = (2,) if call == 2 else ()
+        ids, hot, rows = hg_case(b + c, b, c, d, torch.int32, True, dev)
+        out, hit = hot_gather(ids, hot, rows)
+        single_us, _ = device_timed(lambda st: kernel.launch(
+            ids.data_ptr(), hot.data_ptr(), rows.data_ptr(), out.data_ptr(),
+            hit.data_ptr(), b, c, d, rows.dtype, st))
+
+        def launch_for(p, b=b, c=c, d=d, shared=shared):
+            per = [hg_case(b + c + i, b, c, d, torch.int32, True, dev)
+                   for i in range(p)]
+            args, batched = stack_points(per, shared)
+            pout, phit = hot_gather_batched(*args, p)
+            strides = [a[0].numel() if bt else 0
+                       for a, bt in zip(args, batched)]
+            return nbytes_of(*args, pout, phit), \
+                lambda st: kernel.launch_batched(
+                    args[0].data_ptr(), strides[0], args[1].data_ptr(),
+                    strides[1], args[2].data_ptr(), strides[2],
+                    pout.data_ptr(), phit.data_ptr(), p, b, c, d,
+                    torch.int32, st)
+        calls.append(dict(shape=dict(b=b, c=c, d=d,
+                                     shared_rows=bool(shared)),
+                          single_device_us=single_us,
+                          batched=batched_times(single_us, launch_for)))
+    return n_cases, max_err, calls
+
+
+def np_take(tree, i):
+    """Point ``i`` of a tree of numpy arrays (other leaves dropped to
+    None)."""
+    if isinstance(tree, np.ndarray):
+        return tree[i]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(np_take(v, i) for v in tree))
+    if isinstance(tree, tuple):
+        return tuple(np_take(v, i) for v in tree)
+    return None
+
+
+def periods_of(updates):
+    """Chunks' period updates (numpy ``TracedUpdate`` leaves ``[n_periods,
+    ...]``) as one, the periods in order."""
+    return type(updates[0])(*(np.concatenate(x) for x in zip(*updates)))
+
+
+def same_traces(got, want, label):
+    """Two dicts of numpy traces equal in every key, dtype included."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: traces {sorted(got)} against "
+                             f"{sorted(want)}")
+    for k, v in want.items():
+        if got[k].dtype != v.dtype or not np.array_equal(got[k], v):
+            raise AssertionError(f"{label}: trace {k} differs")
+    return len(want)
+
+
+def fleet_no_sync(cell, fleet, period_w=None):
+    """:func:`no_sync` of a fleet: 8 fleet windows (a fleet period),
+    eager then graphed, each under ``set_sync_debug_mode("error")``."""
+    def run():
+        if period_w:
+            fleet.chunk.controller_chunk(
+                fleet._wl, fleet.carry,
+                [c.active_size for c in fleet.controllers],
+                fleet.controllers[0].cfg, 1, period_w)
+        else:
+            fleet.chunk(fleet._wl, fleet.carry, 8)
+
+    for graphs in (False, True):
+        fleet.chunk.graphs = graphs
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    fleet.chunk.graphs = True
+    phase("no_sync", cell=cell, points=fleet.n_points,
+          windows=period_w or 8, period=bool(period_w), eager=True,
+          graphed=True)
+
+
+def timed_run(fn):
+    """``(result, wall s)`` of ``fn()`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fleet_rates(n_win, wall, capture_s, p, serial_wps, busy):
+    """A fleet run's rates, the run's graph captures taken out: fleet
+    windows/s, point-windows/s (P x) beside the serial racks' windows/s
+    (their median, captures taken out too), and :func:`rates`' device
+    share; ``wall_seconds`` keeps the captures."""
+    run_s = max(wall - capture_s, 1e-9)
+    r = rates(n_win, run_s, busy)
+    wps = n_win / run_s
+    serial = float(np.median(serial_wps))
+    return dict(r, wall_seconds=round(wall, 3), capture_seconds=capture_s,
+                point_windows_per_s=p * wps, serial_windows_per_s=serial,
+                serial_windows_per_s_each=serial_wps,
+                point_windows_over_serial=p * wps / serial)
+
+
+def run_fleet_staircase(dev):
+    """``fleet_staircase`` (module docstring): returns the subround
+    launches of its run."""
+    from repro_torch import kernels as kn
+    from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
+    from repro_torch.interop import to_numpy
+    from repro_torch.kvstore.fleet import BatchedRackSimulator
+    from repro_torch.kvstore.simulator import RackSimulator
+    from repro_torch.kvstore.workload import Workload
+
+    p = len(STAIRCASE_LOADS)
+    wl = Workload(WORKLOAD, device=dev)
+    t0 = time.perf_counter()
+    fleet = BatchedRackSimulator(RACK, wl, offered_rps=STAIRCASE_LOADS,
+                                 seeds=range(p))
+    fleet.preload()
+    fleet.reset_stats()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    start = clone_tree(fleet.carry)
+    state = fleet.carry.draws.get_state()
+    with counting_plain_versions() as plain_calls:
+        kn.reset_launch_counts()
+        cap0 = fleet.chunk.capture_seconds
+        res, wall = timed_run(lambda: fleet.run(STAIRCASE_S))
+        capture_s = fleet.chunk.capture_seconds - cap0
+        launches = dict(kn.LAUNCHES)
+        calls = dict(plain_calls)
+    n_win = len(res[0].traces["tx"])
+    if launches != dict(subround=RACK.subrounds * n_win, cms=0,
+                        hot_gather=0, orbit_match=0) or any(calls.values()):
+        raise AssertionError(f"fleet staircase launched {launches} and ran "
+                             f"plain versions {calls} in {n_win} windows; "
+                             f"want {RACK.subrounds} subround a window")
+    fleet_carry = to_numpy(fleet.carry)
+    rows = [stair_row(r) for r in res]
+    knee = knee_of(rows)
+    if not all(r["rx"] > 0 for r in rows):
+        raise AssertionError("a staircase point served nothing")
+
+    # each point against a serial graphed rack of its seed and load
+    serial_wps, n_leaves, n_traces = [], 0, 0
+    for i, load in enumerate(STAIRCASE_LOADS):
+        sim = RackSimulator(dataclasses.replace(RACK, seed=i), wl)
+        sim.set_offered(load)
+        sim.preload(wl.hottest_keys(RACK.cache_entries))
+        sim.reset_stats()
+        cap0 = sim.chunk.capture_seconds
+        r, w = timed_run(lambda: sim.run(STAIRCASE_S))
+        serial_wps.append(n_win / (w - (sim.chunk.capture_seconds - cap0)))
+        n_traces += same_traces(res[i].traces, r.traces, f"staircase {i}")
+        n_leaves += compare_trees(np_take(fleet_carry, i),
+                                  to_numpy(sim.carry), f"staircase {i}")
+        del sim
+
+    def rewind():
+        fleet.carry = clone_tree(start)
+        fleet.carry.draws.set_state(state)
+
+    def drive():
+        return [fleet.run_windows(FLEET_CHECK_WINDOWS)]
+
+    wall_g, wall_e, n_ge, n_out, graphed = graphed_and_eager(
+        "fleet_staircase", fleet, drive, rewind)
+    with counting_plain_versions() as plain_calls:
+        wall_ref, n_ref, n_out_ref = plain_replay("fleet_staircase", fleet,
+                                                  drive, rewind, graphed)
+    if plain_calls["subround"] != RACK.subrounds * FLEET_CHECK_WINDOWS * p:
+        raise AssertionError(f"staircase plain replay ran {plain_calls}")
+    rewind()
+    busy = busy_per_window(lambda: fleet.run_windows(25), 25)
+    phase("fleet_staircase", points=p, windows=n_win,
+          offered_rps=list(STAIRCASE_LOADS), seeds=list(range(p)),
+          setup_seconds=round(setup_s, 3), launches=launches,
+          launches_per_fleet_window=launches["subround"] / n_win,
+          points_equal_serial=p, equal_traces=n_traces,
+          equal_leaves=n_leaves,
+          rows=[dict(point=i, **{k: r[k] for k in
+                                 ("offered", "rx", "loss", "srv_drop",
+                                  "p99")})
+                for i, r in enumerate(rows)],
+          knee_rps=knee,
+          **fleet_rates(n_win, wall, capture_s, p, serial_wps, busy),
+          graph=graph_stats(fleet),
+          peak_device_mib=round(torch.cuda.max_memory_allocated(dev)
+                                / 2**20, 1))
+    phase("fleet_replays", cell="fleet_staircase",
+          windows=FLEET_CHECK_WINDOWS, graphed_seconds=round(wall_g, 3),
+          eager_seconds=round(wall_e, 3),
+          graphed_equal_eager_leaves=n_ge, equal_outputs=n_out,
+          plain_seconds=round(wall_ref, 3), plain_equal_leaves=n_ref,
+          plain_equal_outputs=n_out_ref)
+    fleet_no_sync("fleet_staircase", fleet)
+    return launches["subround"]
+
+
+def stair_row(res, burn_frac=0.3):
+    """``benchmarks/common.py::_row``'s numbers of one point."""
+    rx = res.throughput_rps(burn_frac=burn_frac)
+    tx = res.offered_rps(burn_frac=burn_frac)
+    return dict(offered=tx, rx=rx, loss=1.0 - rx / max(tx, 1.0),
+                srv_drop=res.max_server_drop_frac(burn_frac=burn_frac),
+                p99=res.latency_percentile(0.99))
+
+
+def knee_of(rows, loss_tol=0.02, srv_drop_tol=0.05):
+    """``benchmarks/common.py::_knee_of``: the largest rx with loss and
+    the worst server's drop share within their bounds."""
+    ok = [r["rx"] for r in rows
+          if r["loss"] <= loss_tol and r["srv_drop"] <= srv_drop_tol]
+    return max(ok) if ok else rows[0]["rx"]
+
+
+def run_fleet_control_plane(dev):
+    """``fleet_control_plane`` (module docstring): returns the launches of
+    its run."""
+    from repro_torch import kernels as kn
+    from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
+    from repro_torch.interop import to_numpy
+    from repro_torch.kvstore.fleet import BatchedRackSimulator
+    from repro_torch.kvstore.simulator import RackSimulator
+    from repro_torch.kvstore.workload import Workload
+
+    p = FLEET_CP_POINTS
+    rack = dataclasses.replace(RACK, track_popularity=True)
+    wl = Workload(WORKLOAD, device=dev)
+    fleet = BatchedRackSimulator(rack, wl, seeds=range(p))
+    fleet.preload()
+    period_w = int(round(CP_PERIOD_S / (rack.window_us * 1e-6)))
+    start = clone_tree(fleet.carry)
+    state = fleet.carry.draws.get_state()
+    act0, perm0 = [c.active_size for c in fleet.controllers], \
+        wl._perm_np.copy()
+    updates = []
+    run_periods = fleet.run_periods
+
+    def recorded(n_periods, pw):       # every chunk's period updates
+        out = run_periods(n_periods, pw)
+        updates.append(fleet._last_update)
+        return out
+    fleet.run_periods = recorded
+
+    def drive(phase_s=CP_PHASE_S):
+        results = []
+        for ph in range(CP_PHASES):
+            if ph:
+                wl.hot_in_swap(CP_SWAP)
+                fleet.refresh_workloads()
+            results.append(fleet.run(phase_s,
+                                     controller_period_s=CP_PERIOD_S))
+        return results
+
+    def rewind():
+        fleet.carry = clone_tree(start)
+        fleet.carry.draws.set_state(state)
+        for c, a in zip(fleet.controllers, act0):
+            c.active_size = a
+        wl._perm_np[:] = perm0
+        wl.perm = torch.from_numpy(perm0.copy()).to(dev)
+        fleet.refresh_workloads()
+        updates.clear()
+
+    n_win = CP_PHASES * int(round(CP_PHASE_S / (rack.window_us * 1e-6)))
+    n_periods = n_win // period_w
+    want = dict(subround=rack.subrounds * n_win, cms=n_win,
+                hot_gather=3 * n_periods, orbit_match=0)
+    with counting_plain_versions() as plain_calls:
+        kn.reset_launch_counts()
+        cap0 = fleet.chunk.capture_seconds
+        results, wall = timed_run(drive)
+        capture_s = fleet.chunk.capture_seconds - cap0
+        launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
+    if launches != want or any(calls.values()) or \
+            sum(u.n_insert.shape[1] for u in updates) != n_periods:
+        raise AssertionError(f"fleet control plane launched {launches} and "
+                             f"ran plain versions {calls}; want {want}")
+    fleet_carry = to_numpy(fleet.carry)
+    fleet_updates = list(updates)
+    act = [c.active_size for c in fleet.controllers]
+    win_s = rack.window_us * 1e-6
+
+    def late_rps(traces):
+        rx = (traces["rx_switch"].astype(np.int64)
+              + traces["rx_server"].astype(np.int64))
+        q = len(rx) // 4
+        return float(rx[-q:].sum() / (q * win_s))
+
+    per_point = []
+    for i in range(p):
+        late = [late_rps(r[i].traces) for r in results]
+        per_point.append(dict(point=i, seed=i, late_rps=late,
+                              recovery=min(late[1:]) / max(late[0], 1.0),
+                              active_size=act[i]))
+    if not all(min(x["late_rps"]) > 0 for x in per_point):
+        raise AssertionError("a control-plane point served nothing")
+
+    # each point against the serial control-plane rack of its seed
+    serial_wps, n_leaves, n_traces, n_upd = [], 0, 0, 0
+    for i in range(p):
+        wl._perm_np[:] = perm0
+        wl.perm = torch.from_numpy(perm0.copy()).to(dev)
+        sim = RackSimulator(dataclasses.replace(rack, seed=i), wl)
+        sim.preload(wl.hottest_keys(rack.cache_entries))
+        s_updates = []
+        cap0 = sim.chunk.capture_seconds
+
+        def serial_drive():
+            out = []
+            for ph in range(CP_PHASES):
+                if ph:
+                    wl.hot_in_swap(CP_SWAP)
+                out.append(sim.run(
+                    CP_PHASE_S, controller_period_s=CP_PERIOD_S,
+                    on_period=lambda s, w: s_updates.append(s._last_update)))
+            return out
+        s_res, w = timed_run(serial_drive)
+        serial_wps.append(n_win / (w - (sim.chunk.capture_seconds - cap0)))
+        for ph in range(CP_PHASES):
+            n_traces += same_traces(results[ph][i].traces, s_res[ph].traces,
+                                    f"cp {i} phase {ph}")
+        n_upd += compare_trees(
+            periods_of([np_take(u, i) for u in fleet_updates]),
+            periods_of(s_updates), f"cp {i} period updates")
+        n_leaves += compare_trees(np_take(fleet_carry, i),
+                                  to_numpy(sim.carry), f"cp {i} carry")
+        if sim.controller.active_size != act[i]:
+            raise AssertionError(f"cp point {i}: active_size differs")
+        del sim
+    wl._perm_np[:] = perm0
+    wl.perm = torch.from_numpy(perm0.copy()).to(dev)
+
+    def one_period():
+        out = fleet.run_periods(1, period_w)
+        return [out, fleet._last_update._asdict(),
+                dict(active=np.array([c.active_size
+                                      for c in fleet.controllers]))]
+
+    wall_g, wall_e, n_ge, n_out, graphed = graphed_and_eager(
+        "fleet_control_plane", fleet, one_period, rewind)
+    with counting_plain_versions() as plain_calls:
+        wall_ref, n_ref, n_out_ref = plain_replay(
+            "fleet_control_plane", fleet, one_period, rewind, graphed)
+    want_plain = (rack.subrounds * period_w * p, period_w * p, 3 * p)
+    if (plain_calls["subround"], plain_calls["cms"],
+            plain_calls["hot_gather"]) != want_plain:
+        raise AssertionError(f"fleet period plain replay ran {plain_calls}")
+    rewind()
+    busy = busy_per_window(lambda: fleet.run_periods(1, period_w), period_w)
+    phase("fleet_control_plane", points=p, seeds=list(range(p)),
+          windows=n_win, periods=n_periods, launches=launches,
+          launches_per_fleet_window=dict(
+              subround=launches["subround"] / n_win,
+              cms=launches["cms"] / n_win),
+          hot_gather_per_period=launches["hot_gather"] / n_periods,
+          points_equal_serial=p, equal_traces=n_traces,
+          equal_leaves=n_leaves, equal_update_leaves=n_upd,
+          per_point=per_point,
+          **fleet_rates(n_win, wall, capture_s, p, serial_wps, busy),
+          graph=graph_stats(fleet),
+          peak_device_mib=round(torch.cuda.max_memory_allocated(dev)
+                                / 2**20, 1))
+    phase("fleet_replays", cell="fleet_control_plane", windows=period_w,
+          periods=1, graphed_seconds=round(wall_g, 3),
+          eager_seconds=round(wall_e, 3), graphed_equal_eager_leaves=n_ge,
+          equal_outputs=n_out, plain_seconds=round(wall_ref, 3),
+          plain_equal_leaves=n_ref, plain_equal_outputs=n_out_ref)
+    rewind()
+    fleet_no_sync("fleet_control_plane", fleet, period_w)
+    fleet.run_periods = run_periods
+    return launches
+
+
+def run_fleet_skew(dev):
+    """``fleet_skew`` (module docstring): returns the subround launches of
+    its OrbitCache run."""
+    from repro_torch import kernels as kn
+    from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
+    from repro_torch.interop import to_numpy
+    from repro_torch.kvstore.fleet import BatchedRackSimulator
+    from repro_torch.kvstore.simulator import RackSimulator
+    from repro_torch.kvstore.workload import Workload
+
+    p = len(SKEW_ALPHAS)
+    wls = [Workload(dataclasses.replace(WORKLOAD, zipf_alpha=a), device=dev)
+           for a in SKEW_ALPHAS]
+    sub_launches = 0
+    for scheme in ("orbitcache", "netcache", "nocache"):
+        rack = dataclasses.replace(RACK, scheme=scheme)
+        k = rack.cache_entries if scheme == "orbitcache" else \
+            rack.netcache_entries
+        keys = [w.hottest_keys(k) for w in wls]
+        fleet = BatchedRackSimulator(rack, wls, seeds=range(p))
+        if fleet._wl_axes != (0, None, None):
+            raise AssertionError(f"skew fleet axes {fleet._wl_axes}")
+        fleet.preload(keys)
+        with counting_plain_versions() as plain_calls:
+            kn.reset_launch_counts()
+            cap0 = fleet.chunk.capture_seconds
+            res, wall = timed_run(lambda: fleet.run(SKEW_S))
+            capture_s = fleet.chunk.capture_seconds - cap0
+            launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
+        n_win = len(res[0].traces["tx"])
+        want = dict(subround=rack.subrounds * n_win * (scheme == "orbitcache"),
+                    cms=0, hot_gather=0, orbit_match=0)
+        if launches != want or any(calls.values()):
+            raise AssertionError(f"skew {scheme} launched {launches} and ran "
+                                 f"plain versions {calls}; want {want}")
+        sub_launches += launches["subround"]
+        if scheme == "netcache" and not min(fleet._installed) > 0:
+            raise AssertionError(f"skew netcache installed "
+                                 f"{fleet._installed}")
+        fleet_carry = to_numpy(fleet.carry)
+        serial_wps, n_leaves, n_traces = [], 0, 0
+        for i, w in enumerate(wls):
+            sim = RackSimulator(dataclasses.replace(rack, seed=i), w)
+            if scheme != "nocache":
+                sim.preload(keys[i])
+            cap0 = sim.chunk.capture_seconds
+            r, wall_s = timed_run(lambda: sim.run(SKEW_S))
+            serial_wps.append(n_win / (wall_s - (sim.chunk.capture_seconds
+                                                 - cap0)))
+            n_traces += same_traces(res[i].traces, r.traces,
+                                    f"skew {scheme} {i}")
+            n_leaves += compare_trees(np_take(fleet_carry, i),
+                                      to_numpy(sim.carry),
+                                      f"skew {scheme} {i}")
+            del sim
+        busy = busy_per_window(lambda: fleet.run_windows(25), 25)
+        pts = []
+        for i, r in enumerate(res):
+            rx_sw = r.traces["rx_switch"].astype(np.int64).sum()
+            rx_srv = r.traces["rx_server"].astype(np.int64).sum()
+            pts.append(dict(zipf_alpha=SKEW_ALPHAS[i],
+                            throughput_rps=r.throughput_rps(),
+                            switch_share=float(rx_sw / max(rx_sw + rx_srv,
+                                                           1)),
+                            balancing_efficiency=r.balancing_efficiency(),
+                            p99_us=r.latency_percentile(0.99)))
+        phase("fleet_skew", scheme=scheme, points=p, windows=n_win,
+              launches=launches,
+              points_equal_serial=p, equal_traces=n_traces,
+              equal_leaves=n_leaves, per_point=pts,
+              installed=getattr(fleet, "_installed", None),
+              **fleet_rates(n_win, wall, capture_s, p, serial_wps, busy),
+              graph=graph_stats(fleet))
+        del fleet
+    return sub_launches
+
+
+def run_fleet(dev):
+    """The batched kernels against their plain versions, then the three
+    fleet cells: ``(kernel records, launches by kernel and path)``."""
+    n_sr, err_sr, t_sr = check_subround_batched(dev)
+    phase("subround_batched_vs_plain", cases=n_sr, equal=True,
+          max_abs_err=err_sr, **t_sr)
+    n_cms, err_cms, t_cms = check_cms_batched(dev)
+    phase("cms_batched_vs_plain", cases=n_cms, equal=True,
+          max_abs_err=err_cms, **t_cms)
+    n_hg, err_hg, t_hg = check_hot_gather_batched(dev)
+    phase("hot_gather_batched_vs_plain", cases=n_hg, equal=True,
+          max_abs_err=err_hg, calls=t_hg)
+    stair = run_fleet_staircase(dev)
+    cp = run_fleet_control_plane(dev)
+    skew = run_fleet_skew(dev)
+    by_path = dict(subround=dict(fleet_staircase=stair,
+                                 fleet_control_plane=cp["subround"],
+                                 fleet_skew=skew),
+                   cms=dict(fleet_staircase=0,
+                            fleet_control_plane=cp["cms"], fleet_skew=0),
+                   hot_gather=dict(fleet_staircase=0,
+                                   fleet_control_plane=cp["hot_gather"],
+                                   fleet_skew=0))
+    batched = dict(
+        subround=(err_sr, {r["p"]: r["device_us"] for r in t_sr["batched"]}),
+        cms=(err_cms, {r["p"]: r["device_us"] for r in t_cms["batched"]}),
+        hot_gather=(err_hg, {r["p"]: r["device_us"]
+                             for r in t_hg[1]["batched"]}))
+    return batched, by_path
 
 
 def time_against(dev, other_dir):
@@ -1476,9 +2188,12 @@ def time_against(dev, other_dir):
                                    for a in hg_args + hg_live)),
         "orbit_match": (om_kernel, time_orbit_match, lambda: same(
             orbit_match(*om_args), orbit_match_ref(*om_args)))}
-    others = {k: _build.KernelLibrary(k, Path(other_dir) / f"{k}.cu",
-                                      mod.LIB.signatures)
-              for k, (mod, _, _) in checks.items()}
+    # the serial C interfaces (an older source has no batched launch)
+    others = {k: _build.KernelLibrary(
+        k, Path(other_dir) / f"{k}.cu",
+        {n: sig for n, sig in mod.LIB.signatures.items()
+         if "batched" not in n})
+        for k, (mod, _, _) in checks.items()}
     _build.build_all([mod.LIB for mod, _, _ in checks.values()]
                      + list(others.values()))
     sim, _, period_w = control_plane_rack(dev)
@@ -1579,13 +2294,14 @@ def main():
     om = run_orbit_match(dev, live)
     cp_launches = run_control_plane(dev)
     run_schemes(dev)
+    batched, fleet_launches = run_fleet(dev)
 
     def launches(k):
-        return dict(launches=(k == "subround") * main_launches
-                    + cp_launches[k],
-                    launches_by_path=dict(
-                        main_path=(k == "subround") * main_launches,
-                        control_plane=cp_launches[k]))
+        by_path = dict(main_path=(k == "subround") * main_launches,
+                       control_plane=cp_launches[k], **fleet_launches[k])
+        err, us = batched[k]
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path,
+                    batched_max_abs_err=err, batched_device_us=us)
 
     hg = hg_calls[1]          # ids [2048] against hot [2048], the largest
 
@@ -1620,7 +2336,9 @@ def main():
              source="src/repro_torch/kernels/orbit_match/kernel.cu",
              replaces="src/repro/kernels/orbit_match/kernel.py:25",
              launches=om["launches"],
-             launches_by_path=dict(orbit_match_entry_point=om["launches"]),
+             launches_by_path=dict(orbit_match_entry_point=om["launches"],
+                                   fleet_staircase=0, fleet_control_plane=0,
+                                   fleet_skew=0),
              max_abs_err=om["max_abs_err"], ms=om["ms"],
              **device_times(om),
              plain_ms=om["plain_ms"], bound_ms=om["bound_ms"],

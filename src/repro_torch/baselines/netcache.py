@@ -107,7 +107,7 @@ def netcache_step(st: NetCacheState, pkts: PacketBatch):
     t = st.occupied.shape[0]
     w_cached = w_req & hit
     widx = torch.where(w_cached, slot, t).long()
-    bumps = torch.zeros(t + 1, dtype=I32, device=slot.device).scatter_add_(
+    bumps = torch.zeros(t + 1, dtype=I32, device=slot.device).scatter_add(
         0, widx, torch.ones_like(slot))[:t]
     valid_arr = st.valid & (bumps == 0)
     version = st.version + bumps

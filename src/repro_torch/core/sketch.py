@@ -68,9 +68,9 @@ def cms_update(cms: CountMinSketch, hkey: torch.Tensor, mask: torch.Tensor,
     w = cms.width
     cells = _rows(hkey, w).long() + torch.arange(CMS_DEPTH,
                                                  device=hkey.device) * w
-    counts = cms.counts.reshape(-1).clone()
-    counts.index_add_(0, cells.reshape(-1),
-                      mask[:, None].expand(-1, CMS_DEPTH).reshape(-1).to(I32))
+    counts = cms.counts.reshape(-1).index_add(
+        0, cells.reshape(-1),
+        mask[:, None].expand(-1, CMS_DEPTH).reshape(-1).to(I32))
     return CountMinSketch(counts.reshape(cms.counts.shape))
 
 

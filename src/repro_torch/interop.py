@@ -97,3 +97,11 @@ def carry_from_numpy(carry, draws, device):
     return SimCarry(**{f: (draws if f == "draws"
                            else from_numpy(getattr(carry, f), device, f))
                        for f in SimCarry._fields})
+
+
+def fleet_carry_from_numpy(carry, draws, device):
+    """A reference fleet's stacked ``SimCarry`` ([P, ...] numpy leaves) ->
+    the port fleet's, with ``draws`` (one source per point, such as a
+    ``ReplayDraws`` row each) in place of the reference's PRNG keys."""
+    from repro_torch.kvstore.fleet import FleetDraws
+    return carry_from_numpy(carry, FleetDraws(draws), device)

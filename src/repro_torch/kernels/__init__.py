@@ -16,12 +16,24 @@ tensors).  Asking for ``cuda`` with CPU tensors is an error.
 ``LAUNCHES`` counts kernel launches by kernel name: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels.
+
+The fleet
+---------
+A fleet of racks (``kvstore.fleet``) runs the window under
+``torch.func.vmap`` over its points.  There ``subround``,
+``cms_update_query`` and ``hot_gather`` are ``torch.library`` custom ops
+with a batching rule: the rule moves each batched input's point axis to
+the front, passes a shared input (``in_dims`` None) once with a point
+stride of 0, and makes ONE batched launch for all points (on the ``ref``
+backend it calls the plain version once per point, outside vmap).  Called
+with no batched tensor, a dispatcher takes the serial path.
 """
 from __future__ import annotations
 
 import os
 
 import torch
+from torch._C._functorch import is_batchedtensor
 
 # Bind the kernel subpackages BEFORE the same-named dispatchers below, so
 # the dispatcher functions shadow the subpackage attributes for good.
@@ -112,6 +124,10 @@ def subround(
             rt_client, rt_seq, rt_port, rt_ts, rt_acked, rt_kidx, qlen,
             front, rear, ob_live, ob_kidx, ob_version, ob_vlen, ob_frags,
             budget)
+    if _batched(*args):
+        budget = torch.as_tensor(budget, device=hkey.device)
+        return SubroundOuts(*_subround_op(list(args[:30]) + [budget],
+                                          queue_size, max_frags, max_serves))
     if kernel_backend(hkey.device) == "ref":
         return SubroundOuts(*subround_ref(
             *args, queue_size=queue_size, max_frags=max_frags,
@@ -131,6 +147,8 @@ def cms_update_query(hkey, mask, counts, block_b: int = 256):
     from .cms import ops
     from .cms import ref as cms_ref
 
+    if _batched(hkey, mask, counts):
+        return tuple(_cms_op(hkey, mask, counts, block_b))
     if kernel_backend(hkey.device) == "ref":
         idx = ops.rows_for(hkey, counts.shape[-1])
         return cms_ref.cms_update_query_fast(
@@ -145,6 +163,122 @@ def hot_gather(ids, hot_ids, rows):
     from .hot_gather import ops
     from .hot_gather import ref as hg_ref
 
+    if _batched(ids, hot_ids, rows):
+        return tuple(_hot_gather_op(ids, hot_ids, rows))
     if kernel_backend(ids.device) == "ref":
         return hg_ref.hot_gather_ref(ids, hot_ids, rows)
     return ops.hot_gather(ids, hot_ids, rows)
+
+
+# ---------------------------------------------------------------------------
+# the fleet: custom ops whose batching rule launches once for all points
+# ---------------------------------------------------------------------------
+def _batched(*xs) -> bool:
+    """Whether any argument is a tensor batched by ``torch.func.vmap``."""
+    return any(isinstance(x, torch.Tensor) and is_batchedtensor(x)
+               for x in xs)
+
+
+def _front(x, d):
+    """A rule's input with its point axis first (``d`` None: shared)."""
+    return x if d is None else x.movedim(d, 0)
+
+
+def _unaliased(outs, ins):
+    """A custom op may not return its inputs: copy any output that is
+    one."""
+    ptrs = {x.data_ptr() for x in ins if isinstance(x, torch.Tensor)}
+    return [o.clone() if o.data_ptr() in ptrs else o for o in outs]
+
+
+def _per_point(fn, p, args, dims):
+    """The plain version once per point, outside vmap, stacked."""
+    per = [fn(*(a if d is None else a[i] for a, d in zip(args, dims)))
+           for i in range(p)]
+    return [torch.stack(x) for x in zip(*per)]
+
+
+@torch.library.custom_op("repro_torch::subround", mutates_args=())
+def _subround_op(args: list[torch.Tensor], queue_size: int, max_frags: int,
+                 max_serves: int) -> list[torch.Tensor]:
+    return _unaliased(subround(*args, queue_size=queue_size,
+                               max_frags=max_frags, max_serves=max_serves),
+                      args)
+
+
+def _subround_vmap(info, in_dims, args, queue_size, max_frags, max_serves):
+    from .subround.ops import subround_batched
+
+    p, dims = info.batch_size, in_dims[0]
+    args = [_front(a, d) for a, d in zip(args, dims)]
+    if kernel_backend(args[0].device) == "ref":
+        from .subround import ref as sr_ref
+        outs = _per_point(
+            lambda *a: sr_ref.subround_ref(*a, queue_size=queue_size,
+                                           max_frags=max_frags,
+                                           max_serves=max_serves),
+            p, args, dims)
+    else:
+        outs = list(subround_batched(args, [d is not None for d in dims], p,
+                                     queue_size, max_frags, max_serves))
+    return outs, [0] * len(outs)
+
+
+torch.library.register_vmap("repro_torch::subround", _subround_vmap)
+
+
+@torch.library.custom_op("repro_torch::cms_update_query", mutates_args=())
+def _cms_op(hkey: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor,
+            block_b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(_unaliased(cms_update_query(hkey, mask, counts, block_b),
+                            (hkey, mask, counts)))
+
+
+def _cms_vmap(info, in_dims, hkey, mask, counts, block_b):
+    from .cms import ops
+    from .cms import ref as cms_ref
+
+    p = info.batch_size
+    hkey, mask, counts = (_front(a, d) for a, d in
+                          zip((hkey, mask, counts), in_dims[:3]))
+    # per-point sketches: the rule's outputs always carry the point axis
+    if in_dims[1] is None:
+        mask = mask.expand((p,) + mask.shape)
+    if in_dims[2] is None:
+        counts = counts.expand((p,) + counts.shape)
+    idx = ops.rows_for(hkey, counts.shape[-1])     # [P, B, 5] or [B, 5]
+    tile = ops.tile_for(hkey.shape[-2], block_b)
+    if kernel_backend(hkey.device) == "ref":
+        outs = _per_point(
+            lambda i, m, c: cms_ref.cms_update_query_fast(
+                i, m.to(torch.int32), c, block_b=tile),
+            p, (idx, mask, counts), (in_dims[0], 0, 0))
+    else:
+        outs = ops.update_query_batched(idx, mask, counts, tile)
+    return tuple(outs), (0, 0)
+
+
+torch.library.register_vmap("repro_torch::cms_update_query", _cms_vmap)
+
+
+@torch.library.custom_op("repro_torch::hot_gather", mutates_args=())
+def _hot_gather_op(ids: torch.Tensor, hot_ids: torch.Tensor,
+                   rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(_unaliased(hot_gather(ids, hot_ids, rows),
+                            (ids, hot_ids, rows)))
+
+
+def _hot_gather_vmap(info, in_dims, ids, hot_ids, rows):
+    from .hot_gather import ops
+    from .hot_gather import ref as hg_ref
+
+    p = info.batch_size
+    args = [_front(a, d) for a, d in zip((ids, hot_ids, rows), in_dims)]
+    if kernel_backend(ids.device) == "ref":
+        outs = _per_point(hg_ref.hot_gather_ref, p, args, in_dims)
+    else:
+        outs = ops.hot_gather_batched(*args, p)
+    return tuple(outs), (0, 0)
+
+
+torch.library.register_vmap("repro_torch::hot_gather", _hot_gather_vmap)

@@ -45,6 +45,14 @@
 //      first c, then walks c up to its last, adding the rows of the other
 //      matches in ascending order; on the controller's inputs, whose hot
 //      ids are distinct, first == last and the walk is empty.
+// A fleet of P racks merges its P controllers' reports in one launch:
+// grid z = P, block z reading its point's ids, hot ids and rows at z times
+// their per-point strides (0 for an input all points share, such as the
+// controller's zero rows) and writing its point's out and hit.  Each block
+// builds its own point's tables, so the order rules above hold per point.
+// At 2,048 ids against 2,048 hot ids a launch for P = 4 and 12 takes 3.3
+// and 5.2 us, against 12.7 and 38.1 for P serial launches (chip_smoke.py,
+// NVIDIA H100 80GB HBM3, 700 W).
 // Shared memory: 8 bytes per slot and 4 per hot id of a chunk, 72 KB at
 // C = 2,048 and 144 KB from C = 4,096 on.
 //
@@ -95,8 +103,17 @@ __global__ void __launch_bounds__(kThreads) hot_gather_kernel(
     const T* __restrict__ rows,        // [C, D]
     T* __restrict__ out,               // [B, D]
     int32_t* __restrict__ hit,         // [B]
+    long long ids_str, long long hot_str, long long rows_str,
     int B, int C, int D, int td, int log_t) {
   if (!kWork) return;
+  {  // this block's point: per-point strides, outputs stacked
+    const long long pt = blockIdx.z;
+    ids += pt * ids_str;
+    hot += pt * hot_str;
+    rows += pt * rows_str;
+    out += pt * (long long)B * D;
+    hit += pt * B;
+  }
   using A = typename Acc<T>::type;
   extern __shared__ __align__(16) int32_t sm[];
   const int n_slots = 1 << log_t, mask = n_slots - 1;
@@ -196,9 +213,10 @@ long long smem_bytes(int C) {
 
 template <typename T, bool kWork>
 int launch_typed(const void* ids, const void* hot, const void* rows,
-                 void* out, void* hit, int B, int C, int D, void* stream) {
+                 void* out, void* hit, const long long* str, int P, int B,
+                 int C, int D, void* stream) {
   const int td = D < kMaxTD ? D : kMaxTD;
-  const dim3 grid((B + kLanes - 1) / kLanes, (D + td - 1) / td);
+  const dim3 grid((B + kLanes - 1) / kLanes, (D + td - 1) / td, P);
   const long long smem = smem_bytes(C);
   auto kernel = hot_gather_kernel<T, kWork>;
   if (smem > 48 * 1024) {
@@ -210,25 +228,27 @@ int launch_typed(const void* ids, const void* hot, const void* rows,
            reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(ids), static_cast<const int32_t*>(hot),
       static_cast<const T*>(rows), static_cast<T*>(out),
-      static_cast<int32_t*>(hit), B, C, D, td, log_slots(C));
+      static_cast<int32_t*>(hit), str[0], str[1], str[2], B, C, D, td,
+      log_slots(C));
   return (int)cudaGetLastError();
 }
 
 template <bool kWork>
 int launch_with(const void* ids, const void* hot, const void* rows,
-                void* out, void* hit, int B, int C, int D, int dtype,
-                void* stream) {
-  if (B < 1 || C < 0 || D < 1) return (int)cudaErrorInvalidValue;
+                void* out, void* hit, const long long* str, int P, int B,
+                int C, int D, int dtype, void* stream) {
+  if (P < 1 || P > 65535 || B < 1 || C < 0 || D < 1)
+    return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return launch_typed<int32_t, kWork>(ids, hot, rows, out, hit, B, C, D,
-                                          stream);
+      return launch_typed<int32_t, kWork>(ids, hot, rows, out, hit, str, P,
+                                          B, C, D, stream);
     case 1:
-      return launch_typed<float, kWork>(ids, hot, rows, out, hit, B, C, D,
-                                        stream);
+      return launch_typed<float, kWork>(ids, hot, rows, out, hit, str, P, B,
+                                        C, D, stream);
     case 2:
-      return launch_typed<__nv_bfloat16, kWork>(ids, hot, rows, out, hit, B,
-                                                C, D, stream);
+      return launch_typed<__nv_bfloat16, kWork>(ids, hot, rows, out, hit,
+                                                str, P, B, C, D, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -244,14 +264,31 @@ extern "C" {
 int hot_gather_launch(const void* ids, const void* hot, const void* rows,
                       void* out, void* hit, int B, int C, int D, int dtype,
                       void* stream) {
-  return launch_with<true>(ids, hot, rows, out, hit, B, C, D, dtype, stream);
+  const long long none[3] = {0, 0, 0};
+  return launch_with<true>(ids, hot, rows, out, hit, none, 1, B, C, D, dtype,
+                           stream);
+}
+
+// P points in one launch: the arrays of point 0 as above, out [P, B, D]
+// and hit [P, B] stacked, and the per-point strides in elements of ids,
+// hot and rows (0 for an input every point shares).
+int hot_gather_batched_launch(const void* ids, long long s_ids,
+                              const void* hot, long long s_hot,
+                              const void* rows, long long s_rows, void* out,
+                              void* hit, int P, int B, int C, int D,
+                              int dtype, void* stream) {
+  const long long str[3] = {s_ids, s_hot, s_rows};
+  return launch_with<true>(ids, hot, rows, out, hit, str, P, B, C, D, dtype,
+                           stream);
 }
 
 // The same launch of a kernel that does nothing: the launch floor.
 int hot_gather_empty_launch(const void* ids, const void* hot,
                             const void* rows, void* out, void* hit, int B,
                             int C, int D, int dtype, void* stream) {
-  return launch_with<false>(ids, hot, rows, out, hit, B, C, D, dtype, stream);
+  const long long none[3] = {0, 0, 0};
+  return launch_with<false>(ids, hot, rows, out, hit, none, 1, B, C, D,
+                            dtype, stream);
 }
 
 const char* hot_gather_error_string(int e) {

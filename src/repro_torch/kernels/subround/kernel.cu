@@ -48,6 +48,14 @@
 //      or a line, by index, all issued before any is used;
 //   4. the serving round: one thread per grid cell (entry, j) gathers its
 //      slot from the shared request table.
+// A fleet of P racks (the reference vmaps this kernel over its sweep
+// points inside one pallas_call) launches P blocks, one switch instance
+// each: block p offsets every array by p times its per-point stride, and an
+// input the points share has stride 0.  The serial launch is the same
+// kernel with the offsets compiled out, and the wrapper takes it for one
+// point: the offsets cost about 1 us a launch (8.4 against 7.4 at P = 1).
+// At P = 4 and 12 a launch takes 8.3 and 8.7 us, against 30 and 89 for
+// P serial launches (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
 // No float arithmetic: `ts` travels as its 32-bit pattern.  Every array is
 // 4-byte, so the kernel sees them all as int32.
 //
@@ -84,7 +92,29 @@ enum Out {
 struct Params {
   const int32_t* in[kIn];
   int32_t* out[kOut];
+  int str[kIn + kOut];   // per-point strides in elements (batched launch)
   int B, C, S, F, J;
+};
+
+// The arrays of one switch instance.  A batched launch runs one instance
+// per block, block p reading and writing each array `p x its stride` on
+// (a stride of 0 shares an input between the points); the serial launch
+// reads the pointers as they are.
+template <bool kBatched>
+struct Inputs {
+  const Params& p;
+  long long pt;
+  __device__ __forceinline__ const int32_t* operator[](int k) const {
+    return kBatched ? p.in[k] + pt * p.str[k] : p.in[k];
+  }
+};
+template <bool kBatched>
+struct Outputs {
+  const Params& p;
+  long long pt;
+  __device__ __forceinline__ int32_t* operator[](int k) const {
+    return kBatched ? p.out[k] + pt * p.str[kIn + k] : p.out[k];
+  }
 };
 
 // jnp's integer // and % round toward minus infinity; C's toward zero.
@@ -109,8 +139,8 @@ struct Lane {
   int want, wreq, inst, frag;
 };
 
-__device__ __forceinline__ Lane load_lane(const int32_t* const* in, int b,
-                                          bool hk_vec) {
+template <typename In>
+__device__ __forceinline__ Lane load_lane(const In& in, int b, bool hk_vec) {
   Lane l;
   if (hk_vec) {
     l.h = __ldg(reinterpret_cast<const int4*>(in[HKEY]) + b);
@@ -125,14 +155,16 @@ __device__ __forceinline__ Lane load_lane(const int32_t* const* in, int b,
   return l;
 }
 
+template <bool kBatched>
 __global__ void __launch_bounds__(kThreads) subround_kernel(Params p) {
   extern __shared__ __align__(16) int32_t sm[];
   const int B = p.B, C = p.C, S = p.S, F = p.F, J = p.J;
   const int C4 = (C + 3) & ~3, CF = C * F, CS = C * S;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int32_t* const* in = p.in;
-  int32_t* const* out = p.out;
+  const long long pt = kBatched ? blockIdx.x : 0;
+  const Inputs<kBatched> in{p, pt};
+  const Outputs<kBatched> out{p, pt};
 
   int4* s_thk = reinterpret_cast<int4*>(sm);  // [C4] hash words per entry
   int32_t* s_k0 = sm + 4 * C4;        // [C4] first hash word, 16-B aligned
@@ -436,13 +468,15 @@ long long smem_bytes(int B, int C, int S, int F) {
 }  // namespace
 
 template <typename K>
-int launch_with(K kernel, const unsigned long long* ptrs, int B, int C,
-                int S, int F, int J, void* stream) {
+int launch_with(K kernel, const unsigned long long* ptrs, const int* strides,
+                int P, int B, int C, int S, int F, int J, void* stream) {
+  if (P < 1) return (int)cudaErrorInvalidValue;
   Params p;
   for (int i = 0; i < kIn; ++i)
     p.in[i] = reinterpret_cast<const int32_t*>(ptrs[i]);
   for (int i = 0; i < kOut; ++i)
     p.out[i] = reinterpret_cast<int32_t*>(ptrs[kIn + i]);
+  for (int i = 0; i < kIn + kOut; ++i) p.str[i] = strides ? strides[i] : 0;
   p.B = B; p.C = C; p.S = S; p.F = F; p.J = J;
   const long long smem = smem_bytes(B, C, S, F);
   if (smem > 48 * 1024) {
@@ -450,7 +484,7 @@ int launch_with(K kernel, const unsigned long long* ptrs, int B, int C,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<1, kThreads, (size_t)smem,
+  kernel<<<P, kThreads, (size_t)smem,
            reinterpret_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
@@ -461,13 +495,24 @@ extern "C" {
 // elements).  Returns a cudaError_t; 0 means the launch was accepted.
 int subround_launch(const unsigned long long* ptrs, int B, int C, int S,
                     int F, int J, void* stream) {
-  return launch_with(subround_kernel, ptrs, B, C, S, F, J, stream);
+  return launch_with(subround_kernel<false>, ptrs, nullptr, 1, B, C, S, F,
+                     J, stream);
+}
+
+// P switch instances in one launch, one block each: ptrs as above, the
+// arrays of point 0; strides: the 63 per-point strides in elements, the
+// inputs' then the outputs' (0 for an input all points share).
+int subround_batched_launch(const unsigned long long* ptrs,
+                            const int* strides, int P, int B, int C, int S,
+                            int F, int J, void* stream) {
+  return launch_with(subround_kernel<true>, ptrs, strides, P, B, C, S, F, J,
+                     stream);
 }
 
 // The same launch of empty_kernel, to time the launch floor.
 int subround_empty_launch(const unsigned long long* ptrs, int B, int C,
                           int S, int F, int J, void* stream) {
-  return launch_with(empty_kernel, ptrs, B, C, S, F, J, stream);
+  return launch_with(empty_kernel, ptrs, nullptr, 1, B, C, S, F, J, stream);
 }
 
 const char* subround_error_string(int e) {

@@ -12,9 +12,11 @@ from .._build import MAX_SMEM_BYTES, KernelLibrary, check_smem
 
 _ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_BATCHED_ARGS = _ARGS[:1] + [ctypes.c_void_p, ctypes.c_int] + _ARGS[1:]
 LIB = KernelLibrary("subround", Path(__file__).with_name("kernel.cu"),
                     {"subround_launch": _ARGS,
-                     "subround_empty_launch": _ARGS})
+                     "subround_empty_launch": _ARGS,
+                     "subround_batched_launch": _BATCHED_ARGS})
 
 
 WARPS = 16           # kThreads / 32 in kernel.cu
@@ -43,3 +45,17 @@ def launch(ptrs: list[int], b: int, c: int, s: int, f: int, j: int,
     arr = (ctypes.c_uint64 * len(ptrs))(*ptrs)
     fn = "subround_empty_launch" if empty else "subround_launch"
     LIB.call(fn, arr, b, c, s, f, j, ctypes.c_void_p(stream))
+
+
+def launch_batched(ptrs: list[int], strides: list[int], p: int, b: int,
+                   c: int, s: int, f: int, j: int, stream: int) -> None:
+    """Launch ``p`` switch instances, one block of 512 threads each, on
+    ``stream``: ``ptrs`` are point 0's 31 input and 32 output addresses,
+    ``strides`` the 63 per-point strides in elements (0 for an input the
+    points share).  Raises if the launch is refused."""
+    check_smem(smem_bytes(b, c, s, f),
+               f"subround kernel: B={b}, C={c}, S={s}, F={f}")
+    arr = (ctypes.c_uint64 * len(ptrs))(*ptrs)
+    st = (ctypes.c_int * len(strides))(*strides)
+    LIB.call("subround_batched_launch", arr, st, p, b, c, s, f, j,
+             ctypes.c_void_p(stream))

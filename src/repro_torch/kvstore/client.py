@@ -9,6 +9,8 @@ source supplies the Poisson count ``n`` and two flat uniform vectors
 ``u[b]`` (key ranks) and ``w[b]`` (write coin).  :class:`TorchDraws` makes
 them with a ``torch.Generator`` on the device (Philox); :class:`ReplayDraws`
 replays draws made elsewhere, such as ``jax.random``'s in a parity test.
+A fleet of racks takes every point's draws before its vmapped window and
+hands them in through :class:`GivenDraws`.
 """
 from __future__ import annotations
 
@@ -51,9 +53,9 @@ def _bucket_counts(bucket: torch.Tensor) -> torch.Tensor:
     """int64[LAT_BUCKETS] histogram increments; lanes with
     ``bucket == LAT_BUCKETS`` are dropped."""
     counts = torch.zeros(LAT_BUCKETS + 1, dtype=torch.int64,
-                         device=bucket.device)
-    counts.scatter_add_(0, bucket.reshape(-1).long(),
-                        torch.ones_like(bucket.reshape(-1), dtype=torch.int64))
+                         device=bucket.device).scatter_add(
+        0, bucket.reshape(-1).long(),
+        torch.ones_like(bucket.reshape(-1), dtype=torch.int64))
     return counts[:LAT_BUCKETS]
 
 
@@ -112,6 +114,10 @@ class TorchDraws:
     def reserve(self, n: int) -> None:
         """A generator never runs out."""
 
+    def generators(self) -> list[torch.Generator]:
+        """The generators a CUDA graph of a window must register."""
+        return [self.gen]
+
     def get_state(self) -> torch.Tensor:
         return self.gen.get_state()
 
@@ -142,6 +148,9 @@ class ReplayDraws:
                              f"{self.n.shape[0]} left")
         self.pos += n
 
+    def generators(self) -> list[torch.Generator]:
+        return []
+
     def draw(self, offered: torch.Tensor, b: int):
         i = self.index
         n = self.n.index_select(0, i)[0]
@@ -156,6 +165,18 @@ class ReplayDraws:
     def set_state(self, state: tuple[torch.Tensor, int]) -> None:
         self.index.copy_(state[0])
         self.pos = state[1]
+
+
+class GivenDraws:
+    """A source that returns the draws it was given: one window's ``(n,
+    u, w)``, taken beforehand (the fleet draws every point's outside its
+    vmapped window)."""
+
+    def __init__(self, n, u, w):
+        self.given = (n, u, w)
+
+    def draw(self, offered: torch.Tensor, b: int):
+        return self.given
 
 
 def generate(st: ClientState, cfg: ClientConfig, draws, cdf: torch.Tensor,

@@ -134,9 +134,9 @@ def server_step(st: ServerState, cfg: ServerConfig, pkts: PacketBatch,
 
     # write versions bump before value generation (dropped lanes add 0)
     w_mask = live & (s_op == OP_W_REQ)
-    kv = st.key_version.clone()
-    kv.index_add_(0, torch.where(w_mask, s_kidx, 0).reshape(-1).long(),
-                  w_mask.reshape(-1).to(I32))
+    kv = st.key_version.index_add(
+        0, torch.where(w_mask, s_kidx, 0).reshape(-1).long(),
+        w_mask.reshape(-1).to(I32))
     version = kv[s_kidx.long()]
 
     n_frags = torch.clamp(torch.div(s_vlen + pad - 1, pad,

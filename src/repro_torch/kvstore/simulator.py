@@ -449,6 +449,30 @@ def _copy_tree_(dst, src) -> None:
             _copy_tree_(d, v)
 
 
+def tree_stack(trees):
+    """Stack a list of equal trees along a new leading (point) axis; a leaf
+    that is not a tensor (a draw source) is taken from the first tree."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(first, tuple):
+        items = [tree_stack(list(xs)) for xs in zip(*trees)]
+        return type(first)(*items) if hasattr(first, "_fields") \
+            else tuple(items)
+    return first
+
+
+def tree_take(tree, i: int):
+    """Point ``i`` of a stacked tree (other leaves as they are)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, tuple):
+        items = [tree_take(v, i) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else tuple(items)
+    return tree
+
+
 def _write_row_(bufs, row, idx: torch.Tensor):
     """``bufs[i][idx] = row[i]`` for every leaf, at a device index."""
     for b, v in zip(bufs, row, strict=True):
@@ -511,10 +535,24 @@ class CompiledChunk:
         self.captures = 0
         self.graph_bytes: dict[str, int] = {}  # memory reserved by capture
 
+    # -- one window and one period boundary of the chunk's carry ----------
+    def step(self, wl: WorkloadArrays, carry: SimCarry,
+             ) -> tuple[SimCarry, WindowMetrics]:
+        return window_step(self.cfg, self.server_cfg, self.client_cfg,
+                           self.key_size, wl, carry)
+
+    def apply(self, wl: WorkloadArrays, carry: SimCarry,
+              active: torch.Tensor):
+        """``(carry', active', TracedUpdate)`` of a period boundary."""
+        return controller_window_apply(self.cfg, self.ctrl_cfg, wl, carry,
+                                       active)[:3]
+
+    def set_active(self, active_size) -> None:
+        self.active.fill_(active_size)
+
     # -- the bodies ---------------------------------------------------------
     def window_body(self) -> None:
-        new, m = window_step(self.cfg, self.server_cfg, self.client_cfg,
-                             self.key_size, self.wl, self.carry)
+        new, m = self.step(self.wl, self.carry)
         _copy_tree_(self.carry, new)
         if self.metrics is None:
             self.metrics = _rows(m, self.w_cap)
@@ -522,8 +560,7 @@ class CompiledChunk:
         self.w_idx += 1
 
     def period_body(self) -> None:
-        new, act, upd, _ = controller_window_apply(
-            self.cfg, self.ctrl_cfg, self.wl, self.carry, self.active)
+        new, act, upd = self.apply(self.wl, self.carry, self.active)
         _copy_tree_(self.carry, new)
         _copy_tree_(self.active, act)
         if self.updates is None:
@@ -550,7 +587,7 @@ class CompiledChunk:
             self._graphs.pop("period", None)
             self.ctrl_cfg = ctrl_cfg
         self._start(wl, carry, n_periods * period_w, n_periods)
-        self.active.fill_(active_size)
+        self.set_active(active_size)
         for _ in range(n_periods):
             self._run("window", self.window_body, period_w)
             self._run("period", self.period_body, 1)
@@ -568,11 +605,14 @@ class CompiledChunk:
                              f"{self.device}")
         carry.draws.reserve(n_windows)
         if self.carry is None:
-            self.carry, self.wl = _clone_tree(carry), _clone_tree(wl)
+            self.carry = _clone_tree(carry)
         else:
             _copy_tree_(self.carry, carry)
-            _copy_tree_(self.wl, wl)
             self.carry = self.carry._replace(draws=carry.draws)
+        if self.wl is None:
+            self.wl = _clone_tree(wl)
+        else:
+            _copy_tree_(self.wl, wl)
         if n_windows > self.w_cap:
             self.w_cap, self.metrics = n_windows, None
             self._graphs.pop("window", None)
@@ -610,8 +650,9 @@ class CompiledChunk:
                     (saved[0], *saved[2:5]))
         draws.set_state(saved[1])
         graph = torch.cuda.CUDAGraph()
-        if name == "window" and isinstance(draws, cl.TorchDraws):
-            graph.register_generator_state(draws.gen)
+        if name == "window":
+            for gen in draws.generators():
+                graph.register_generator_state(gen)
         before = dict(kn.LAUNCHES)
         with torch.cuda.graph(graph):
             reserved = torch.cuda.memory_reserved(self.device)

@@ -211,3 +211,96 @@ def test_cuda_kernel_matches_plain_version():
         want = ref.cms_update_query_fast(idx, m_t, c_t, block_b=tile)
         for g, wt in zip(got, want):
             assert torch.equal(g, wt), (b, w, p, blk, n)
+
+
+# ---- the fleet: P points' sketches in one batched op (one launch) -------
+# which of the op's inputs every point shares (in_dims None)
+CMS_SHARING = {"none": (), "hkey": (0,), "mask": (1,), "counts": (2,)}
+
+
+def batched_cms_case(seed, p, b, w, n, shared):
+    """``(hk uint32, mask, counts)`` stacked per point, or point 0's where
+    ``shared``, and their in_dims."""
+    per = [make_case(seed + i, b, w, 0.5, n=n) for i in range(p)]
+    dims = tuple(None if k in shared else 0 for k in range(3))
+    args = [per[0][k] if d is None else np.stack([x[k] for x in per])
+            for k, d in enumerate(dims)]
+    return args, dims
+
+
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("sharing", list(CMS_SHARING))
+def test_batched_cms_matches_plain_and_jax_vmap(p, sharing):
+    """The dispatcher under ``torch.func.vmap`` (the batching rule: per
+    point row indices, P x n sketches) and the batched wrapper equal the
+    plain version once per point and the reference vmapped over the points
+    and the servers."""
+    b, w, n, block_b = 257, 64, 4, 32
+    (hk, mask, counts), dims = batched_cms_case(
+        31 * p, p, b, w, n, CMS_SHARING[sharing])
+    hk_t = torch.from_numpy(hk.view(np.int32).copy())
+    m_t, c_t = torch.from_numpy(mask), torch.from_numpy(counts)
+    got = torch.func.vmap(
+        lambda h, m, c: kn.cms_update_query(h, m, c, block_b=block_b),
+        in_dims=dims)(hk_t, m_t, c_t)
+    tile = ops.tile_for(b, block_b)
+    exp = lambda a, d: a if d is not None else a.expand((p,) + a.shape)
+    idx = ops.rows_for(hk_t, w)
+    direct = ops.update_query_batched(idx, exp(m_t, dims[1]),
+                                      exp(c_t, dims[2]), tile)
+    pt = lambda a, d, i: a if d is None else a[i]
+    for i in range(p):
+        want = ref.cms_update_query_fast(pt(idx, dims[0], i),
+                                         pt(m_t, dims[1], i),
+                                         pt(c_t, dims[2], i), block_b=tile)
+        for g, dr, wt in zip(got, direct, want):
+            assert torch.equal(g[i], wt) and torch.equal(dr[i], wt), \
+                (sharing, i)
+
+    def one(h, c, m):
+        return jax.vmap(lambda c1, m1: jkn.cms_update_query(
+            h, m1, c1, block_b=block_b))(c, m)
+
+    jkn.set_kernel_backend("ref")
+    try:
+        jwant = jax.vmap(one, in_axes=(dims[0], dims[2], dims[1]))(
+            jnp.asarray(hk), jnp.asarray(counts), jnp.asarray(mask))
+    finally:
+        jkn.set_kernel_backend(None)
+    for g, wt in zip(got, jwant):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wt),
+                                      err_msg=f"p={p} sharing={sharing}")
+
+
+@pytest.mark.cuda
+def test_cuda_batched_kernel_matches_plain_version():
+    """On the card: P = 1, 4 and 12 points of the rack's 32 sketches (and
+    a small case), row indices per point or shared, in one launch, equal
+    the plain version once per point, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    for b, w, n, blk in ((257, 64, 4, 32), (1408, 2048, 32, 256)):
+        for p in (1, 4, 12):
+            for shared in ((), (0,)):
+                (hk, mask, counts), dims = batched_cms_case(
+                    p + b, p, b, w, n, shared)
+                hk_t = torch.from_numpy(hk.view(np.int32).copy()).cuda()
+                m_t = torch.from_numpy(mask).cuda()
+                c_t = torch.from_numpy(counts).cuda()
+                idx = ops.rows_for(hk_t, w)
+                tile = ops.tile_for(b, blk)
+                before = kn.LAUNCHES["cms"]
+                got = ops.update_query_batched(idx, m_t, c_t, tile)
+                via = torch.func.vmap(
+                    lambda h, m, c: kn.cms_update_query(h, m, c,
+                                                        block_b=blk),
+                    in_dims=dims)(hk_t, m_t, c_t)
+                torch.cuda.synchronize()
+                assert kn.LAUNCHES["cms"] == before + 2
+                for i in range(p):
+                    want = ref.cms_update_query_fast(
+                        idx if shared else idx[i], m_t[i], c_t[i],
+                        block_b=tile)
+                    for g, v, wt in zip(got, via, want):
+                        assert torch.equal(g[i], wt), (b, p, shared, i)
+                        assert torch.equal(v[i], wt), (b, p, shared, i)

@@ -33,6 +33,7 @@ from repro_torch import kernels as kn  # noqa: E402
 from repro_torch.core import controller as tctl  # noqa: E402
 from repro_torch.interop import carry_from_numpy, to_numpy  # noqa: E402
 from repro_torch.kvstore import client as tcl  # noqa: E402
+from repro_torch.kvstore import fleet as tfl  # noqa: E402
 from repro_torch.kvstore import simulator as tsim  # noqa: E402
 from repro_torch.kvstore import workload as twl  # noqa: E402
 
@@ -384,3 +385,99 @@ def test_kernel_backend_is_part_of_the_graph_key():
     graphed.run_windows(6)
     assert graphed.chunk.captures == captures + 2
     assert kn.LAUNCHES["subround"] == 4 * 12
+
+
+# the fleet: a window graph (and a period graph) of all points at once
+FLEET_POINTS = 3
+
+
+def _card_fleet_pair(scheme, dev):
+    """Two 3-point fleets on the card from one carry and one draw state,
+    one graphed and one eager: ``(graphed, eager, wl)``."""
+    rack = dict(CARD_RACK, track_popularity=scheme == "control_plane",
+                scheme="orbitcache" if scheme == "control_plane" else scheme)
+    wl = twl.Workload(twl.WorkloadConfig(**WORKLOAD), device=dev)
+    graphed, eager = (tfl.BatchedRackSimulator(
+        tsim.RackConfig(**rack), wl, offered_rps=(0.1e6, 0.2e6, 0.4e6),
+        graphs=graphs) for graphs in (True, False))
+    if rack["scheme"] != "nocache":
+        graphed.preload([wl.hottest_keys(16)] * FLEET_POINTS)
+    eager.carry = tsim._clone_tree(graphed.carry)._replace(
+        draws=eager.carry.draws)
+    eager.carry.draws.set_state(graphed.carry.draws.get_state())
+    return graphed, eager, wl
+
+
+def _drive_fleet(fleet, scheme, wl):
+    """Two chunks with a ``hot_in_swap`` between them."""
+    out = []
+    for i in range(2):
+        if i:
+            wl.hot_in_swap(8)
+            fleet.refresh_workloads()
+        if scheme == "control_plane":
+            out.append(fleet.run_periods(2, 5))
+            out.append(fleet._last_update._asdict())
+            out.append(dict(active=np.array([c.active_size
+                                             for c in fleet.controllers])))
+        else:
+            out.append(fleet.run_windows(12))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", SCHEMES + ("control_plane",))
+def test_fleet_graphed_chunk_matches_eager_on_card(scheme):
+    """A graphed fleet chunk equals an eager one from the same carry and
+    draw states in every metric, carry leaf, period update and
+    ``active_size``, through a ``hot_in_swap``; each kernel launches once
+    per call site for all points."""
+    dev = _card()
+    graphed, eager, wl = _card_fleet_pair(scheme, dev)
+    perm0 = wl._perm_np.copy()
+    kn.reset_launch_counts()
+    got = _drive_fleet(graphed, scheme, wl)
+    torch.cuda.synchronize()
+    launches = dict(kn.LAUNCHES)
+    wl._perm_np[:] = perm0
+    wl.perm = torch.from_numpy(perm0.copy()).to(dev)
+    eager.refresh_workloads()
+    kn.reset_launch_counts()
+    want = _drive_fleet(eager, scheme, wl)
+    torch.cuda.synchronize()
+    assert launches == dict(kn.LAUNCHES)
+    n_win = 2 * (10 if scheme == "control_plane" else 12)
+    tracking = scheme == "control_plane"
+    subround = 4 * n_win if scheme in ("orbitcache", "control_plane") else 0
+    assert launches == dict(subround=subround, cms=n_win * tracking,
+                            hot_gather=3 * 4 * tracking, orbit_match=0)
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=f"{i}: {k}")
+    assert_trees_equal(graphed.carry, to_numpy(eager.carry), "carry")
+    assert got[0]["tx"].shape == (FLEET_POINTS, 10 if tracking else 12)
+    assert graphed.chunk.captures >= 1 and eager.chunk.captures == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graphs", [False, True])
+@pytest.mark.parametrize("scheme", SCHEMES + ("control_plane",))
+def test_fleet_chunk_does_not_sync(scheme, graphs):
+    """No fleet window and no fleet period boundary waits for the card or
+    copies from the host (``set_sync_debug_mode("error")``)."""
+    dev = _card()
+    fleet, _, wl = _card_fleet_pair(scheme, dev)
+    fleet.chunk.graphs = graphs
+    run = ((lambda: fleet.chunk.controller_chunk(
+        fleet._wl, fleet.carry, [8] * FLEET_POINTS,
+        fleet.controllers[0].cfg, 1, 4))
+        if scheme == "control_plane"
+        else (lambda: fleet.chunk(fleet._wl, fleet.carry, 4)))
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

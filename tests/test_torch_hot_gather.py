@@ -18,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import kernels as jkn  # noqa: E402
@@ -334,3 +335,71 @@ def test_cuda_kernel_matches_plain_version():
             else:
                 torch.testing.assert_close(g_out, w_out, rtol=1e-6,
                                            atol=1e-6)
+
+
+# ---- the fleet: P controllers' merges in one batched op (grid z = P) ----
+HG_SHARING = {"none": (), "ids": (0,), "hot": (1,), "rows": (2,)}
+
+
+def batched_hg_case(seed, p, b, c, d, dtype, distinct, shared):
+    per = [make_case(seed + i, b, c, d, dtype, distinct) for i in range(p)]
+    dims = tuple(None if k in shared else 0 for k in range(3))
+    args = [per[0][k] if dm is None else np.stack([x[k] for x in per])
+            for k, dm in enumerate(dims)]
+    return args, dims
+
+
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("sharing", list(HG_SHARING))
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_batched_hot_gather_matches_plain_and_jax_vmap(p, sharing, dtype):
+    """The dispatcher under ``torch.func.vmap`` (the batching rule) and the
+    batched wrapper equal the plain version once per point and the
+    reference under ``jax.vmap``; the zero rows that the controller's third
+    call shares between the points are the ``rows`` case."""
+    b, c, d = 128, 200, 1
+    args, dims = batched_hg_case(17 * p, p, b, c, d, dtype, True,
+                                 HG_SHARING[sharing])
+    t = [torch.from_numpy(a) for a in args]
+    got = torch.func.vmap(kn.hot_gather, in_dims=dims)(*t)
+    direct = ops.hot_gather_batched(*t, p)
+    for i in range(p):
+        want = ref.hot_gather_ref(*(a if dm is None else a[i]
+                                    for a, dm in zip(t, dims)))
+        for g, dr, w in zip(got, direct, want):
+            assert torch.equal(g[i], w) and torch.equal(dr[i], w), \
+                (sharing, i)
+    jwant = jax.vmap(jax_ref, in_axes=dims)(*(jnp.asarray(a) for a in args))
+    for g, w in zip(got, jwant):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=f"p={p} sharing={sharing}")
+
+
+@pytest.mark.cuda
+def test_cuda_batched_kernel_matches_plain_version():
+    """On the card: P = 1, 4 and 12 points at the controller's three call
+    shapes, each input stacked or shared, in one launch, equal the plain
+    version once per point (int32 exactly, float32 with distinct hot ids
+    exactly)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    for b, c, d in ((128, 2048, 1), (2048, 2048, 1), (2048, 128, 1),
+                    (300, 200, 3)):
+        for p in (1, 4, 12):
+            for k, shared in enumerate(HG_SHARING.values()):
+                for dtype in (np.int32, np.float32):
+                    args, dims = batched_hg_case(p + k + b, p, b, c, d,
+                                                 dtype, True, shared)
+                    t = [torch.from_numpy(a).cuda() for a in args]
+                    before = kn.LAUNCHES["hot_gather"]
+                    got = ops.hot_gather_batched(*t, p)
+                    via = torch.func.vmap(kn.hot_gather, in_dims=dims)(*t)
+                    torch.cuda.synchronize()
+                    assert kn.LAUNCHES["hot_gather"] == before + 2
+                    for i in range(p):
+                        want = ref.hot_gather_ref(*(
+                            a if dm is None else a[i]
+                            for a, dm in zip(t, dims)))
+                        for g, v, w in zip(got, via, want):
+                            assert torch.equal(g[i], w), (b, c, p, k, i)
+                            assert torch.equal(v[i], w), (b, c, p, k, i)

@@ -204,3 +204,88 @@ def test_kernel_refuses_shapes_over_shared_memory():
     assert kernel.smem_bytes(60_000, 128, 8, 1) > kernel.MAX_SMEM_BYTES
     for b in (352, 4096):          # the path's batch and the largest checked
         assert kernel.smem_bytes(b, 128, 8, 1) <= kernel.MAX_SMEM_BYTES
+
+
+# ---- the fleet: one batched op (one launch) for P switch instances ------
+# which arguments every point shares (in_dims None): none, the switch's
+# tables, the ingress lanes, the budget
+SHARING = {"none": (), "tables": tuple(range(12, 30)),
+           "lanes": tuple(range(12)), "budget": (30,)}
+BATCH_SHAPE = (48, 16, 8, 2, 8)
+
+
+def batched_case(seed, p, b, c, s, f, shared):
+    """P fuzz cases of one shape with the ``shared`` arguments point 0's:
+    ``(numpy arguments, stacked or shared, and their in_dims)``."""
+    per = [case(seed + i, b, c, s, f)[1] for i in range(p)]
+    dims = [None if k in shared else 0 for k in range(31)]
+    args = [per[0][k] if d is None else np.stack([x[k] for x in per])
+            for k, d in enumerate(dims)]
+    return args, dims
+
+
+def point(args, dims, i):
+    return [a if d is None else a[i] for a, d in zip(args, dims)]
+
+
+@pytest.mark.parametrize("p", [1, 3])
+@pytest.mark.parametrize("sharing", list(SHARING))
+def test_batched_subround_matches_plain_and_jax_vmap(p, sharing):
+    """The dispatcher under ``torch.func.vmap`` (the batching rule), and
+    the batched wrapper called directly, equal the plain version once per
+    point and the reference under ``jax.vmap``, shared inputs included."""
+    from functools import partial
+
+    from repro_torch import kernels as kn
+    from repro_torch.kernels.subround.ops import subround_batched
+
+    b, c, s, f, j = BATCH_SHAPE
+    nargs, dims = batched_case(700 + p, p, b, c, s, f, SHARING[sharing])
+    args = to_port(nargs)
+    got = SubroundOuts(*torch.func.vmap(
+        lambda *a: tuple(kn.subround(*a, s, f, j)), in_dims=tuple(dims))(
+            *args))
+    direct = subround_batched(args, [d is not None for d in dims], p, s, f,
+                              j)
+    for i in range(p):
+        want = subround_ref(*point(args, dims, i), queue_size=s, max_frags=f,
+                            max_serves=j)
+        for name, g, d, w in zip(SubroundOuts._fields, got, direct, want):
+            assert torch.equal(g[i], w) and torch.equal(d[i], w), \
+                (sharing, i, name)
+    jwant = jax.vmap(partial(jax_subround_ref, queue_size=s, max_frags=f,
+                             max_serves=j), in_axes=tuple(dims))(
+        *[jnp.asarray(a) for a in nargs])
+    assert_trees_equal(got, RefOuts(*jwant), f"p={p} sharing={sharing}")
+
+
+@pytest.mark.cuda
+def test_cuda_batched_kernel_matches_plain_version():
+    """On the card: one batched launch of P = 1, 4 and 12 switch instances
+    (each sharing), directly and through vmap's rule, equals the plain
+    version once per point, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    from repro_torch import kernels as kn
+    from repro_torch.kernels.subround.ops import subround_batched
+    for shape in (BATCH_SHAPE, (352, 128, 8, 1, 8)):
+        b, c, s, f, j = shape
+        for p in (1, 4, 12):
+            for k, shared in enumerate(SHARING.values()):
+                nargs, dims = batched_case(50 * p + k, p, b, c, s, f, shared)
+                args = to_port(nargs, "cuda")
+                before = kn.LAUNCHES["subround"]
+                got = subround_batched(args, [d is not None for d in dims],
+                                       p, s, f, j)
+                via = torch.func.vmap(
+                    lambda *a: tuple(kn.subround(*a, s, f, j)),
+                    in_dims=tuple(dims))(*args)
+                torch.cuda.synchronize()
+                assert kn.LAUNCHES["subround"] == before + 2
+                for i in range(p):
+                    want = subround_ref(*point(args, dims, i), queue_size=s,
+                                        max_frags=f, max_serves=j)
+                    for name, g, v, w in zip(SubroundOuts._fields, got, via,
+                                             want):
+                        assert torch.equal(g[i], w), (shape, p, k, i, name)
+                        assert torch.equal(v[i], w), (shape, p, k, i, name)
