@@ -35,7 +35,7 @@ line; any failure exits non-zero:
    windows again, graphed and as eager chunks on the kernel path
    (``graphs=False``), equal in every carry leaf and metric, and the
    same 250 windows replayed with the plain version (eager chunks), equal
-   in every carry leaf and metric to the graphed run, and 25
+   in every carry leaf and metric to the graphed run, and 10
    windows profiled each way (``graphed_vs_eager``: windows/s, device ms
    per window and the device's idle share of each run, the graphs'
    capture seconds and pool memory; where the profiler sees no kernel of
@@ -49,9 +49,9 @@ line; any failure exits non-zero:
    count-min kernel, every period 3 hot_gather kernels, and no plain
    version may run; the three phases cut to 100 windows (1 period)
    each, with both swaps, graphed and as eager chunks on the kernel path,
-   must be equal (``graphed_vs_eager``, a period profiled each way), and
-   so must their replay under the plain versions.  Then one period from the start again
-   (eager), recording the three input sets of its ``_merge_scores`` call;
+   must be equal (``graphed_vs_eager``, a period of 10 windows profiled
+   each way), and so must their replay under the plain versions.  Then
+   one period from the start again (eager), recording the three input sets of its ``_merge_scores`` call;
    each is held against the plain version and timed
    (``hot_gather_live``);
 6. ``orbit_match``, which no simulator path calls, through its own entry
@@ -62,7 +62,7 @@ line; any failure exits non-zero:
 7. the compared schemes on the paper rack: NoCache, and NetCache with the
    10,000 hottest keys preloaded, 500 graphed windows each
    (``serve_kv.py``'s 0.05 s); neither may launch a kernel or run a plain
-   version; the same 500 windows graphed and as eager chunks must be
+   version; their first 100 windows graphed and as eager chunks must be
    equal (``graphed_vs_eager``).  Then 64 windows of each from one carry and
    one set of numpy-made draws, once on the card and once on the CPU:
    every carry leaf and metric equal;
@@ -91,8 +91,39 @@ line; any failure exits non-zero:
 12. ``fleet_skew``: Zipf 0.9, 0.95 and 0.99 (the CDF stacked, each
    point's hot set) for OrbitCache, NetCache (each point's 10,000 hottest
    keys) and NoCache, ``run(0.03)`` each, every point equal to its serial
-   rack; NetCache and NoCache launch no kernel.
+   rack; NetCache and NoCache launch no kernel;
+13. the fabric's kernel launches (``fabric_batched_vs_plain``):
+   ``subround`` and ``cms`` under two vmap levels (3 points x 4 racks at
+   the paper fabric rack's shapes, inputs batched at both levels or the
+   tables shared over the racks and expanded), ``subround`` at 3 spines
+   of 256 entries, each one launch and equal to its plain version per
+   point, timed beside P x the single launch; the spine controller's
+   ``hot_gather`` shapes, timed;
+14. ``fabric_paper``: ``FabricSimulator`` with 4 paper racks (tracking
+   on) under the default ``FabricConfig`` (locality 0.9, an OrbitCache
+   spine of 256 entries): preload, ``run(0.05, controller_period_s=
+   0.01)`` graphed, 8 ``subround`` and 1 ``cms`` launches a fabric window
+   and 6 ``hot_gather`` a period, no plain version; the spine's
+   conservation law; the spine controller's three ``_merge_scores``
+   input sets of its first period against the plain version and timed
+   (``hot_gather_spine_live``); the same fabric without the servers'
+   tracking at locality 1.0, 64 windows from its preload, rack i equal to
+   the serial paper rack of seed i (``fabric_locality_one``); one period
+   of 25 windows graphed, eager and under the plain versions, equal
+   (``fabric_replays``); 10 windows profiled graphed and eager;
+   ``no_sync``;
+15. ``fabric_locality``: ``BatchedFabricSimulator`` at
+   ``benchmarks/fabric_locality.py``'s full settings (4 racks of C = 64,
+   8 servers, a 256-lane batch, 2 subrounds; 1M keys at 1.0M rps;
+   localities 1.0 / 0.9 / 0.5 as 3 points) for each scheme at both
+   tiers: preload with 16 warm windows, 256 windows, the benchmark's
+   columns per point, 4 ``subround`` launches a batched window for
+   OrbitCache and none for the others, each point equal to a serial
+   graphed fabric of its seed and locality, ``no_sync``; then OrbitCache
+   with tracking on, one period of 16 windows: 1 ``cms`` a window and 6
+   ``hot_gather``, graphed = eager = plain.
 
+Every phase line carries ``t_s``, the seconds since the script started.
 The line before the last two is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  There is no CPU fallback.
 """
@@ -124,11 +155,22 @@ CP_PHASES, CP_PHASE_S, CP_PERIOD_S, CP_SWAP = 3, 0.05, 0.01, 128
 # phase
 EAGER_WINDOWS, CP_EAGER_S = 250, 0.01
 SCHEME_S, SCHEME_CHECK_WINDOWS = 0.05, 64
+# windows profiled eager and graphed (each window is 700-2,800 device
+# kernels, and the profiler's processing of the events grows with them),
+# the control plane's with a period of PROFILE_WINDOWS; the schemes'
+# graphed-against-eager comparison over their first 100 windows
+PROFILE_WINDOWS, SCHEME_EAGER_S = 10, 0.01
 BF16_TOL = 2e-2               # tests/test_kernels.py's bf16 hot_gather bound
 
 
+T0 = time.perf_counter()
+
+
 def phase(name, **kv):
-    print(json.dumps({"phase": name, **kv}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": name, **kv,
+                      "t_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def timed(fn, n=TIMED_LAUNCHES):
@@ -1099,7 +1141,7 @@ def run_main_path(dev):
           equal_leaves=n_ref, equal_metrics=n_out_ref)
 
     # what the profiler sees of a short run, eager then graphed
-    prof_windows = 25
+    prof_windows = PROFILE_WINDOWS
     rewind()
     sim.chunk.graphs = False
     kn.reset_launch_counts()
@@ -1245,31 +1287,31 @@ def run_control_plane(dev):
           periods=n_cmp // period_w, seconds=round(wall_ref, 3),
           equal_leaves=n_ref, equal_outputs=n_out_ref)
 
-    # what the profiler sees of one period, eager then graphed
+    # what the profiler sees of one period of PROFILE_WINDOWS windows,
+    # eager then graphed
+    pw = PROFILE_WINDOWS
     rewind()
     sim.chunk.graphs = False
     kn.reset_launch_counts()
-    dev_events, prof_wall = device_profile(
-        lambda: sim.run_periods(1, period_w))
+    dev_events, prof_wall = device_profile(lambda: sim.run_periods(1, pw))
     sim.chunk.graphs = True
     by_kernel = {k: sum(e.count for e in dev_events if f"{k}_kernel"
                         in e.key) for k in want}
     us_by_kernel = {k: device_us(dev_events, f"{k}_kernel") for k in want}
-    if by_kernel != {"subround": rack.subrounds * period_w,
-                     "cms": period_w, "hot_gather": 3}:
+    if by_kernel != {"subround": rack.subrounds * pw, "cms": pw,
+                     "hot_gather": 3}:
         raise AssertionError(f"profiler saw {by_kernel} in one period")
-    busy_eager = busy_per_window(None, period_w, dev_events, prof_wall)
-    phase("control_plane_profile", windows=period_w,
+    busy_eager = busy_per_window(None, pw, dev_events, prof_wall)
+    phase("control_plane_profile", windows=pw,
           kernels_seen=by_kernel, kernel_device_us=us_by_kernel,
           kernel_device_us_per_window={
-              k: v / period_w for k, v in us_by_kernel.items()},
+              k: v / pw for k, v in us_by_kernel.items()},
           kernel_device_us_per_launch={
               k: v / by_kernel[k] for k, v in us_by_kernel.items()},
           device_kernels=sum(e.count for e in dev_events),
           device_busy_ms_per_window=busy_eager["device_ms_per_window"])
     rewind()
-    busy_graphed = busy_per_window(lambda: sim.run_periods(1, period_w),
-                                   period_w)
+    busy_graphed = busy_per_window(lambda: sim.run_periods(1, pw), pw)
     phase("graphed_vs_eager", cell="control_plane", windows=n_cmp,
           periods=n_cmp // period_w, equal_leaves=n_leaves,
           equal_outputs=n_out,
@@ -1385,21 +1427,23 @@ def run_schemes(dev):
             sim.carry = clone_tree(start)
             sim.carry.draws.set_state(gen_state)
 
+        n_cmp = int(round(SCHEME_EAGER_S / (rack.window_us * 1e-6)))
         wall_g, wall_e, n_leaves, n_out, _ = graphed_and_eager(
             scheme, sim,
-            lambda: [sim.run(SCHEME_S, chunk_windows=n_win).traces], rewind)
-        prof_windows = 25
+            lambda: [sim.run(SCHEME_EAGER_S, chunk_windows=n_cmp).traces],
+            rewind)
+        prof_windows = PROFILE_WINDOWS
         busy = {}
         for graphs in (False, True):
             rewind()
             sim.chunk.graphs = graphs
             busy[graphs] = busy_per_window(
                 lambda: sim.run_windows(prof_windows), prof_windows)
-        phase("graphed_vs_eager", cell=scheme, windows=n_win,
+        phase("graphed_vs_eager", cell=scheme, windows=n_cmp,
               equal_leaves=n_leaves, equal_metrics=n_out,
-              graphed=dict(rates(n_win, wall_g, busy[True]),
+              graphed=dict(rates(n_cmp, wall_g, busy[True]),
                            **graph_stats(sim)),
-              eager=rates(n_win, wall_e, busy[False]))
+              eager=rates(n_cmp, wall_e, busy[False]))
         no_sync(scheme, sim)
 
         # the card against the CPU: one carry, one set of numpy-made draws,
@@ -1820,7 +1864,8 @@ def run_fleet_staircase(dev):
     if plain_calls["subround"] != RACK.subrounds * FLEET_CHECK_WINDOWS * p:
         raise AssertionError(f"staircase plain replay ran {plain_calls}")
     rewind()
-    busy = busy_per_window(lambda: fleet.run_windows(25), 25)
+    busy = busy_per_window(lambda: fleet.run_windows(PROFILE_WINDOWS),
+                           PROFILE_WINDOWS)
     phase("fleet_staircase", points=p, windows=n_win,
           offered_rps=list(STAIRCASE_LOADS), seeds=list(range(p)),
           setup_seconds=round(setup_s, 3), launches=launches,
@@ -1997,7 +2042,8 @@ def run_fleet_control_plane(dev):
             plain_calls["hot_gather"]) != want_plain:
         raise AssertionError(f"fleet period plain replay ran {plain_calls}")
     rewind()
-    busy = busy_per_window(lambda: fleet.run_periods(1, period_w), period_w)
+    busy = busy_per_window(
+        lambda: fleet.run_periods(1, PROFILE_WINDOWS), PROFILE_WINDOWS)
     phase("fleet_control_plane", points=p, seeds=list(range(p)),
           windows=n_win, periods=n_periods, launches=launches,
           launches_per_fleet_window=dict(
@@ -2077,7 +2123,8 @@ def run_fleet_skew(dev):
                                       to_numpy(sim.carry),
                                       f"skew {scheme} {i}")
             del sim
-        busy = busy_per_window(lambda: fleet.run_windows(25), 25)
+        busy = busy_per_window(lambda: fleet.run_windows(PROFILE_WINDOWS),
+                               PROFILE_WINDOWS)
         pts = []
         for i, r in enumerate(res):
             rx_sw = r.traces["rx_switch"].astype(np.int64).sum()
@@ -2128,6 +2175,609 @@ def run_fleet(dev):
         hot_gather=(err_hg, {r["p"]: r["device_us"]
                              for r in t_hg[1]["batched"]}))
     return batched, by_path
+
+
+# --------------------------------------------------------------------------
+# the spine fabric
+# --------------------------------------------------------------------------
+FABRIC_S, FABRIC_PERIOD_S = 0.05, 0.01   # fabric_paper: 500 windows, 5 periods
+FABRIC_LOCAL_WINDOWS = 64     # locality 1.0 against independent racks
+FABRIC_CHECK_PERIOD_W = 25    # graphed = eager = plain, one period of these
+FABRIC_NESTED = (3, 4)        # points x racks of the nested kernel checks
+# (b, c, s, f, j) of the paper fabric's rack (352 + 32 forward lanes) and
+# spine (256 spine lanes over 4 subrounds, 256 entries) subround calls
+FABRIC_RACK_SR = (384, 128, 8, 1, 8)
+FABRIC_SPINE_SR = (64, 256, 8, 1, 8)
+FABRIC_CMS = (32, 1536, 2048)   # a rack's sketches over its 1,536 lanes
+# the spine controller's _merge_scores shapes: 256 entries against the
+# R x 32 servers x 16 reported ids
+FABRIC_HG = ((256, 2048, 1), (2048, 2048, 1), (2048, 256, 1))
+LOCALITIES = (1.0, 0.9, 0.5)    # benchmarks/fabric_locality.py, full run
+LOCALITY_WINDOWS, LOCALITY_WARM, LOCALITY_PERIOD_W = 256, 16, 16
+
+
+def nested(fn, args, dims):
+    """``fn`` under two vmap levels (points, then racks): ``dims[k]`` is
+    ``(outer, inner)``, each 0 or None."""
+    def inner(*xs):
+        return torch.func.vmap(fn, in_dims=tuple(d[1] for d in dims))(*xs)
+    return torch.func.vmap(inner, in_dims=tuple(d[0] for d in dims))(*args)
+
+
+def nested_args(make, q, p, dims):
+    """Inputs of a nested call: ``make(i, j)`` per (point, rack), stacked
+    where batched (a shared level takes index 0's)."""
+    per = [[make(i, j) for j in range(p)] for i in range(q)]
+
+    def level(k, i):
+        row = [per[i][j][k] for j in range(p)]
+        return torch.stack(row) if dims[k][1] == 0 else row[0]
+    return [torch.stack([level(k, i) for i in range(q)])
+            if dims[k][0] == 0 else level(k, 0) for k in range(len(dims))]
+
+
+def nested_point(args, dims, i, j):
+    out = []
+    for a, (do, di) in zip(args, dims):
+        a = a[i] if do == 0 else a
+        out.append(a[j] if di == 0 else a)
+    return out
+
+
+def check_fabric_kernels(dev):
+    """The fabric's launches of the kernels (module docstring, phase 13):
+    ``subround`` and ``cms`` under two vmap levels (3 points x 4 racks,
+    inputs batched at both, or the tables shared over the racks and
+    expanded), ``subround`` at 3 spines of 256 entries, each one launch
+    and equal to its plain version per point, timed beside P x the single
+    launch; the spine controller's ``hot_gather`` shapes, timed."""
+    from repro_torch import kernels as kn
+    from repro_torch.kernels.cms import kernel as cms_kernel
+    from repro_torch.kernels.cms.ops import (
+        tile_for, update_query, update_query_batched,
+    )
+    from repro_torch.kernels.cms.ref import cms_update_query_fast
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+    from repro_torch.kernels.subround import kernel as sr_kernel
+    from repro_torch.kernels.subround.ops import subround, subround_batched
+    from repro_torch.kernels.subround.ref import subround_ref
+
+    q, r = FABRIC_NESTED
+    max_err, cases, out = 0.0, 0, {}
+
+    def sr_tensors(seed, shape):
+        b, c, s, f, _ = shape
+        return [torch.from_numpy(np.array(a)).to(dev)
+                for a in subround_case(seed, b, c, s, f, budget=1000)]
+
+    def same(got, want, label):
+        nonlocal max_err
+        for g, w in zip(got, want):
+            max_err = max(max_err, max_abs_err(g, w))
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label}: kernel != plain version")
+
+    def sr_times(shape, p):
+        b, c, s, f, j = shape
+        one = sr_tensors(7, shape)
+        outs = subround(*one, s, f, j)
+        ptrs = ([a.data_ptr() for a in one[:-1]]
+                + [one[-1].reshape(1).data_ptr()]
+                + [o.data_ptr() for o in outs])
+        single, _ = device_timed(
+            lambda st: sr_kernel.launch(ptrs, b, c, s, f, j, st))
+        args, _ = stack_points([sr_tensors(7 + i, shape) for i in range(p)],
+                               ())
+        got = subround_batched(args, [True] * 31, p, s, f, j)
+        bptrs = [a.data_ptr() for a in args] + [o.data_ptr() for o in got]
+        strides = [a[0].numel() for a in args] + [o[0].numel() for o in got]
+        us, method = device_timed(
+            lambda st, held=(args, got): sr_kernel.launch_batched(
+                bptrs, strides, p, b, c, s, f, j, st))
+        return dict(shape=dict(zip("bcsfj", shape)), p=p,
+                    single_device_us=single, device_us=us,
+                    device_timing=method, p_x_single_us=p * single,
+                    **bound(nbytes_of(*args, *got), p * b * c * 5))
+
+    # subround, racks: 3 points x 4 racks, one launch of 12 blocks
+    b, c, s, f, j = FABRIC_RACK_SR
+    for shared in (False, True):
+        dims = ([(0, 0)] * 12 + [(0, None) if shared else (0, 0)] * 18
+                + [(0, 0)])
+        args = nested_args(lambda i, k: sr_tensors(9100 + 10 * i + k,
+                                                   FABRIC_RACK_SR), q, r,
+                           dims)
+        kn.reset_launch_counts()
+        got = nested(lambda *a: tuple(kn.subround(*a, queue_size=s,
+                                                  max_frags=f,
+                                                  max_serves=j)),
+                     args, dims)
+        if kn.LAUNCHES["subround"] != 1:
+            raise AssertionError(f"nested subround launched "
+                                 f"{kn.LAUNCHES['subround']} times")
+        for i in range(q):
+            for k in range(r):
+                same([g[i, k] for g in got], subround_ref(
+                    *nested_point(args, dims, i, k), queue_size=s,
+                    max_frags=f, max_serves=j), f"nested subround {i},{k}")
+                cases += 1
+    out["subround_racks"] = sr_times(FABRIC_RACK_SR, q * r)
+
+    # subround, spines: 3 points of C = 256, one launch of 3 blocks
+    b, c, s, f, j = FABRIC_SPINE_SR
+    per = [sr_tensors(9200 + i, FABRIC_SPINE_SR) for i in range(q)]
+    args, _ = stack_points(per, ())
+    kn.reset_launch_counts()
+    got = torch.func.vmap(lambda *a: tuple(kn.subround(
+        *a, queue_size=s, max_frags=f, max_serves=j)))(*args)
+    if kn.LAUNCHES["subround"] != 1:
+        raise AssertionError("batched spine subround launched "
+                             f"{kn.LAUNCHES['subround']} times")
+    for i in range(q):
+        same([g[i] for g in got], subround_ref(*per[i], queue_size=s,
+                                                max_frags=f, max_serves=j),
+             f"spine subround {i}")
+        cases += 1
+    out["subround_spines"] = sr_times(FABRIC_SPINE_SR, q)
+
+    # count-min: 3 points x 4 racks x 32 sketches, one launch
+    n, b, w = FABRIC_CMS
+    tile = tile_for(b)
+    hk_of = {}
+
+    def cms_args(i, k):
+        from repro_torch.core.hashing import hash128_u32_np
+        rng = np.random.default_rng(9300 + 10 * i + k)
+        keys = rng.integers(0, 2 * b + 4, b).astype(np.int32)
+        hk = torch.from_numpy(hash128_u32_np(keys).view(np.int32)).to(dev)
+        mask = torch.from_numpy(rng.random((n, b)) < 1 / 32).to(dev)
+        counts = torch.from_numpy(rng.integers(0, 51, (n, 5, w))
+                                  .astype(np.int32)).to(dev)
+        hk_of[(i, k)] = hk
+        return [hk, mask, counts]
+    dims = [(0, 0)] * 3
+    args = nested_args(cms_args, q, r, dims)
+    kn.reset_launch_counts()
+    got = nested(lambda h, m, cnt: kn.cms_update_query(h, m, cnt), args,
+                 dims)
+    if kn.LAUNCHES["cms"] != 1:
+        raise AssertionError(f"nested cms launched {kn.LAUNCHES['cms']} "
+                             f"times")
+    from repro_torch.kernels.cms.ops import rows_for
+    for i in range(q):
+        for k in range(r):
+            h, m, cnt = nested_point(args, dims, i, k)
+            same([g[i, k] for g in got], cms_update_query_fast(
+                rows_for(h, w), m.to(torch.int32), cnt, block_b=tile),
+                f"nested cms {i},{k}")
+            cases += 1
+    idx, mask, counts = cms_case(7, n, b, w, 1 / 32, dev)
+    o1, e1 = update_query(idx, mask, counts, tile)
+    single, _ = device_timed(lambda st: cms_kernel.launch(
+        idx.data_ptr(), mask.data_ptr(), counts.data_ptr(), o1.data_ptr(),
+        e1.data_ptr(), n, b, w, tile, st))
+    p = q * r
+    (pidx, pmask, pcounts), _ = stack_points(
+        [cms_case(7 + i, n, b, w, 1 / 32, dev) for i in range(p)], ())
+    pout, pest = update_query_batched(pidx, pmask, pcounts, tile)
+    us, method = device_timed(lambda st: cms_kernel.launch_batched(
+        pidx.data_ptr(), b * 5, n, pmask.data_ptr(), pcounts.data_ptr(),
+        pout.data_ptr(), pest.data_ptr(), p * n, b, w, tile, st))
+    out["cms_racks"] = dict(shape=dict(n=n, b=b, w=w), p=p,
+                            single_device_us=single, device_us=us,
+                            device_timing=method, p_x_single_us=p * single,
+                            **bound(nbytes_of(pidx, pmask, pcounts, pout,
+                                              pest), 0))
+
+    # hot_gather at the spine controller's three shapes
+    calls = []
+    for hb, hc, hd in FABRIC_HG:
+        ids, hot, rows = hg_case(hb + hc + 1, hb, hc, hd, torch.int32, True,
+                                 dev)
+        same(kn.hot_gather(ids, hot, rows), hot_gather_ref(ids, hot, rows),
+             f"spine hot_gather {hb}x{hc}")
+        cases += 1
+        calls.append(dict(shape=dict(b=hb, c=hc, d=hd),
+                          **hg_kernel_times(ids, hot, rows),
+                          **hg_bound(ids, hot, rows)))
+    out["hot_gather_spine"] = calls
+    return cases, max_err, out
+
+
+def fabric_active(sim):
+    """``(active sizes, controller configs)`` a fabric's chunk takes, for
+    a serial or a batched fabric."""
+    if hasattr(sim, "spine_controller"):
+        return (([c.active_size for c in sim.controllers],
+                 sim.spine_controller.active_size),
+                (sim.controllers[0].cfg, sim.spine_controller.cfg))
+    return (([[c.active_size for c in cs] for cs in sim.controllers],
+             [s.active_size for s in sim.spine_controllers]),
+            (sim.controllers[0][0].cfg, sim.spine_controllers[0].cfg))
+
+
+def fabric_no_sync(cell, sim, period_w=None):
+    """:func:`no_sync` of a fabric (serial or batched): 8 windows, or a
+    period of ``period_w``, eager then graphed, each under
+    ``set_sync_debug_mode("error")``."""
+    wl = sim.wl.arrays
+
+    def run():
+        if period_w:
+            active, cfgs = fabric_active(sim)
+            sim.chunk.controller_chunk(wl, sim.carry, active, cfgs, 1,
+                                       period_w)
+        else:
+            sim.chunk(wl, sim.carry, 8)
+
+    for graphs in (False, True):
+        sim.chunk.graphs = graphs
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    sim.chunk.graphs = True
+    phase("no_sync", cell=cell, windows=period_w or 8,
+          period=bool(period_w), eager=True, graphed=True)
+
+
+def spine_merge_inputs(sim, period_w):
+    """The three ``(ids, hot, rows)`` input sets of the spine controller's
+    ``_merge_scores`` in one period of ``sim`` (the calls that are not
+    batched over the racks), recorded through the dispatcher."""
+    from repro_torch import kernels as kn
+
+    recorded, real = [], kn.hot_gather
+
+    def record(*args):
+        if not kn._batched(*args):
+            recorded.append([a.clone() for a in args])
+        return real(*args)
+
+    kn.hot_gather = record
+    sim.chunk.graphs = False        # a graph would replay past the recorder
+    try:
+        sim.run_periods(1, period_w)
+    finally:
+        kn.hot_gather = real
+        sim.chunk.graphs = True
+    if len(recorded) != 3:
+        raise AssertionError(f"{len(recorded)} spine hot_gather calls in a "
+                             f"period")
+    return recorded
+
+
+def run_fabric_paper(dev):
+    """``fabric_paper`` (module docstring, phase 14): returns the launches
+    of its run."""
+    from repro_torch import kernels as kn
+    from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
+    from repro_torch.interop import to_numpy
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+    from repro_torch.kvstore.fabric_sim import FabricConfig, FabricSimulator
+    from repro_torch.kvstore.simulator import RackSimulator
+    from repro_torch.kvstore.workload import Workload
+
+    rack = dataclasses.replace(RACK, track_popularity=True)
+    fcfg = FabricConfig()
+    r_fab = fcfg.n_racks
+    wl = Workload(WORKLOAD, device=dev)
+    t0 = time.perf_counter()
+    sim = FabricSimulator(rack, fcfg, wl)
+    sim.preload()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    start, state = clone_tree(sim.carry), sim.carry.draws.get_state()
+    period_w = int(round(FABRIC_PERIOD_S / (rack.window_us * 1e-6)))
+
+    def rewind():
+        sim.carry = clone_tree(start)
+        sim.carry.draws.set_state(state)
+        for c in sim.controllers:
+            c.active_size = rack.cache_entries
+        sim.spine_controller.active_size = fcfg.spine_cache_entries
+
+    with counting_plain_versions() as plain_calls:
+        kn.reset_launch_counts()
+        cap0 = sim.chunk.capture_seconds
+        res, wall = timed_run(lambda: sim.run(
+            FABRIC_S, controller_period_s=FABRIC_PERIOD_S))
+        capture_s = sim.chunk.capture_seconds - cap0
+        launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
+    sp = res.spine
+    n_win = len(sp["remote"])
+    n_periods = n_win // period_w
+    want = dict(subround=2 * rack.subrounds * n_win, cms=n_win,
+                hot_gather=6 * n_periods, orbit_match=0)
+    if launches != want or any(calls.values()):
+        raise AssertionError(f"fabric_paper launched {launches} and ran "
+                             f"plain versions {calls}; want {want}")
+    # the conservation law of an OrbitCache spine, per window, and every
+    # spine serve accounted at the spine tier
+    remote, served, fwd, in_drops = (sp[k].astype(np.int64) for k in (
+        "remote", "served", "fwd", "in_drops"))
+    rx0 = int(start.spine_clients.rx_switch)
+    queue_cap = fcfg.spine_cache_entries * fcfg.spine_queue_size
+    if not ((fwd + in_drops <= remote).all()
+            and served.sum() <= remote.sum() + queue_cap
+            and served.sum() == sp["rx_switch"] - rx0):
+        raise AssertionError("fabric_paper: the spine's conservation law "
+                             "fails")
+    if not (remote.sum() > 0 and served.sum() > 0 and fwd.sum() > 0):
+        raise AssertionError("fabric_paper: the spine saw no traffic")
+    win_s = rack.window_us * 1e-6
+    burn = int(n_win * 0.25)
+    spine_rps = float(served[burn:].sum() / ((n_win - burn) * win_s))
+    rack_rps = res.throughput_rps() - spine_rps
+    results = dict(
+        delivered_rps=res.throughput_rps(), rack_tier_rps=rack_rps,
+        spine_tier_rps=spine_rps, offered_rps=res.offered_rps(),
+        spine_hit_ratio=res.spine_hit_ratio(),
+        spine_fwd_rps=float(fwd[burn:].sum() / ((n_win - burn) * win_s)),
+        exchange_drops=int(in_drops.sum() + sp["fwd_drops"].sum()),
+        spine_active_size=sp["active_size"],
+        rack_active_sizes=[c.active_size for c in sim.controllers],
+        p99_us_per_rack=[r.latency_percentile(0.99) for r in res.racks])
+
+    # the spine controller's merge inputs, live: its first period's
+    rewind()
+    hg_live = []
+    for ids, hot, rows in spine_merge_inputs(sim, period_w):
+        got = kn.hot_gather(ids, hot, rows)
+        want_hg = hot_gather_ref(ids, hot, rows)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want_hg)):
+            raise AssertionError("spine hot_gather != plain on the live "
+                                 "inputs")
+        valid = hot[hot >= 0]
+        hg_live.append(dict(
+            shape=dict(b=ids.shape[0], c=hot.shape[0], d=rows.shape[1]),
+            hot_sentinels=int((hot == -2).sum()),
+            id_sentinels=int((ids == -3).sum()),
+            hot_repeats=int(valid.numel() - torch.unique(valid).numel()),
+            hits=int(got[1].sum()),
+            **hg_kernel_times(ids, hot, rows), **hg_bound(ids, hot, rows)))
+    phase("hot_gather_spine_live", equal=True, calls=hg_live)
+
+    # locality 1.0 from the preload: rack i is the serial paper rack of
+    # seed i, leaf for leaf.  Held as the reference holds it, without the
+    # servers' tracking: with it, the forward lanes shift the tiles of the
+    # sketch's estimates (``tracker.cand.est``), in the reference's fabric
+    # as in the port's
+    base = dataclasses.replace(rack, track_popularity=False)
+    one = FabricSimulator(base, dataclasses.replace(fcfg, local_frac=1.0),
+                          wl)
+    one.preload()
+    out = one.run_windows(FABRIC_LOCAL_WINDOWS)
+    fab = to_numpy(one.carry)
+    del one
+    n_leaves = n_traces = 0
+    for i in range(r_fab):
+        r_sim = RackSimulator(dataclasses.replace(base, seed=i), wl)
+        r_sim.preload(wl.hottest_keys(base.cache_entries))
+        r_out = r_sim.run_windows(FABRIC_LOCAL_WINDOWS)
+        n_traces += same_traces({k: out[f"rack_{k}"][:, i] for k in r_out},
+                                r_out, f"fabric rack {i}")
+        n_leaves += compare_trees(np_take(fab.racks, i)._replace(draws=None),
+                                  to_numpy(r_sim.carry), f"fabric rack {i}")
+        del r_sim
+    if out["spine_remote"].sum() or out["spine_fwd"].sum():
+        raise AssertionError("locality 1.0 sent lanes to the spine")
+    phase("fabric_locality_one", racks=r_fab, windows=FABRIC_LOCAL_WINDOWS,
+          racks_equal_serial=r_fab, equal_traces=n_traces,
+          equal_leaves=n_leaves)
+
+    # one period at 0.9 graphed, eager and under the plain versions
+    def one_period():
+        m = sim.run_periods(1, FABRIC_CHECK_PERIOD_W)
+        return [m, dict(active=np.array([c.active_size
+                                         for c in sim.controllers]
+                                        + [sim.spine_controller
+                                           .active_size]))]
+
+    wall_g, wall_e, n_ge, n_out, graphed = graphed_and_eager(
+        "fabric_paper", sim, one_period, rewind)
+    with counting_plain_versions() as plain_calls:
+        wall_ref, n_ref, n_out_ref = plain_replay(
+            "fabric_paper", sim, one_period, rewind, graphed)
+    # the plain versions run once per rack (and once for the spine)
+    pw = FABRIC_CHECK_PERIOD_W
+    want_plain = (rack.subrounds * pw * (r_fab + 1), pw * r_fab,
+                  3 * (r_fab + 1))
+    if (plain_calls["subround"], plain_calls["cms"],
+            plain_calls["hot_gather"]) != want_plain:
+        raise AssertionError(f"fabric plain replay ran {plain_calls}")
+    phase("fabric_replays", cell="fabric_paper", windows=pw, periods=1,
+          graphed_seconds=round(wall_g, 3), eager_seconds=round(wall_e, 3),
+          graphed_equal_eager_leaves=n_ge, equal_outputs=n_out,
+          plain_seconds=round(wall_ref, 3), plain_equal_leaves=n_ref,
+          plain_equal_outputs=n_out_ref)
+
+    # what the profiler sees of a few windows, graphed then eager (each
+    # window is ~2,800 device kernels: longer stretches make the
+    # profiler's own processing the longest step of the cell)
+    prof_w = PROFILE_WINDOWS
+    rewind()
+    busy_g = busy_per_window(lambda: sim.run_windows(prof_w), prof_w)
+    rewind()
+    sim.chunk.graphs = False
+    ev, ev_wall = device_profile(lambda: sim.run_windows(prof_w))
+    sim.chunk.graphs = True
+    busy_e = busy_per_window(None, prof_w, ev, ev_wall)
+    by_kernel = {k: sum(e.count for e in ev if f"{k}_kernel" in e.key)
+                 for k in ("subround", "cms")}
+    phase("fabric_paper", racks=r_fab, windows=n_win, periods=n_periods,
+          setup_seconds=round(setup_s, 3), launches=launches,
+          launches_per_window=dict(subround=launches["subround"] / n_win,
+                                   cms=launches["cms"] / n_win),
+          hot_gather_per_period=launches["hot_gather"] / n_periods,
+          eager_kernels_per_window={k: v / prof_w
+                                    for k, v in by_kernel.items()},
+          results=results, conservation=True,
+          graphed=dict(rates(n_win, wall - capture_s, busy_g),
+                       wall_seconds=round(wall, 3),
+                       run_capture_seconds=capture_s, **graph_stats(sim)),
+          eager=rates(pw, wall_e, busy_e),
+          peak_device_mib=round(torch.cuda.max_memory_allocated(dev)
+                                / 2**20, 1))
+    rewind()
+    fabric_no_sync("fabric_paper", sim)
+    rewind()
+    fabric_no_sync("fabric_paper", sim, period_w=8)
+    del sim
+    return launches
+
+
+def locality_configs(scheme, track=False):
+    """``benchmarks/fabric_locality.py``'s rack and fabric, one scheme at
+    both tiers."""
+    from repro_torch.kvstore.fabric_sim import FabricConfig
+    from repro_torch.kvstore.simulator import RackConfig
+
+    cfg = RackConfig(scheme=scheme, cache_entries=64, num_servers=8,
+                     client_batch=256, fetch_lanes=64, value_pad=256,
+                     server_queue=32, subrounds=2, track_popularity=track)
+    fcfg = FabricConfig(n_racks=4, spine_scheme=scheme, spine_lanes=256,
+                        fwd_lanes=128, spine_cache_entries=128)
+    return cfg, fcfg
+
+
+def run_fabric_locality(dev):
+    """``fabric_locality`` (module docstring, phase 15): returns the
+    launches of its runs."""
+    from repro_torch import kernels as kn
+    from repro_torch.interop import to_numpy
+    from repro_torch.kvstore.fabric_sim import FabricSimulator
+    from repro_torch.kvstore.fleet import BatchedFabricSimulator
+    from repro_torch.kvstore.workload import Workload, WorkloadConfig
+
+    wl = Workload(WorkloadConfig(num_keys=1_000_000, offered_rps=1.0e6),
+                  device=dev)
+    p = len(LOCALITIES)
+    total = dict.fromkeys(kn.LAUNCHES, 0)
+    n = LOCALITY_WINDOWS
+    for scheme in ("orbitcache", "netcache", "nocache"):
+        cfg, fcfg = locality_configs(scheme)
+        win_s = cfg.window_us * 1e-6
+        bf = BatchedFabricSimulator(cfg, fcfg, wl, local_fracs=LOCALITIES)
+        bf.preload(warm_windows=LOCALITY_WARM)
+        with counting_plain_versions() as plain_calls:
+            kn.reset_launch_counts()
+            cap0 = bf.chunk.capture_seconds
+            out, wall = timed_run(lambda: bf.run_windows(n))
+            capture_s = bf.chunk.capture_seconds - cap0
+            launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
+        want = dict(subround=2 * cfg.subrounds * n * (scheme == "orbitcache"),
+                    cms=0, hot_gather=0, orbit_match=0)
+        if launches != want or any(calls.values()):
+            raise AssertionError(f"fabric_locality {scheme} launched "
+                                 f"{launches}, plain {calls}; want {want}")
+        for k in total:
+            total[k] += launches[k]
+        fab = to_numpy(bf.carry)
+        rows = []
+        for i, loc in enumerate(LOCALITIES):
+            tot = lambda k: int(out[k][i].astype(np.int64).sum())
+            rx = tot("rack_rx_switch") + tot("rack_rx_server")
+            tx, remote, sp_rx = tot("rack_tx"), tot("spine_remote"), \
+                tot("spine_served")
+            rows.append(dict(
+                locality=loc, delivered_rps=(rx + sp_rx) / (n * win_s),
+                offered_rps=tx / (n * win_s),
+                remote_frac=remote / max(tx, 1),
+                spine_hit_ratio=sp_rx / max(remote, 1),
+                spine_fwd_rps=tot("spine_fwd") / (n * win_s),
+                drops=tot("spine_in_drops") + tot("spine_fwd_drops")))
+        busy = busy_per_window(lambda: bf.run_windows(PROFILE_WINDOWS),
+                               PROFILE_WINDOWS)
+        # each point against a serial graphed fabric of its seed and
+        # locality
+        n_leaves = n_traces = 0
+        serial_wps = []
+        for i, loc in enumerate(LOCALITIES):
+            s = FabricSimulator(dataclasses.replace(cfg, seed=1000 * i),
+                                fcfg, wl)
+            s.set_local_frac(loc)
+            s.preload(warm_windows=LOCALITY_WARM)
+            cap0 = s.chunk.capture_seconds
+            s_out, s_wall = timed_run(lambda: s.run_windows(n))
+            serial_wps.append(n / (s_wall - (s.chunk.capture_seconds - cap0)))
+            n_traces += same_traces({k: v[i] for k, v in out.items()},
+                                    s_out, f"locality {scheme} {i}")
+            n_leaves += compare_trees(np_take(fab, i), to_numpy(s.carry),
+                                      f"locality {scheme} {i}")
+            del s
+        phase("fabric_locality", scheme=scheme, points=p, racks=fcfg.n_racks,
+              windows=n, localities=list(LOCALITIES), rows=rows,
+              launches=launches,
+              subround_per_batched_window=launches["subround"] / n,
+              points_equal_serial=p, equal_traces=n_traces,
+              equal_leaves=n_leaves,
+              **fleet_rates(n, wall, capture_s, p, serial_wps, busy),
+              graph=graph_stats(bf))
+        fabric_no_sync(f"fabric_locality_{scheme}", bf)
+        del bf
+
+    # the period boundary of the sweep: OrbitCache, tracking on, one
+    # period graphed, eager and under the plain versions
+    cfg, fcfg = locality_configs("orbitcache", track=True)
+    bf = BatchedFabricSimulator(cfg, fcfg, wl, local_fracs=LOCALITIES)
+    bf.preload(warm_windows=LOCALITY_WARM)
+    start, state = clone_tree(bf.carry), bf.carry.draws.get_state()
+    pw = LOCALITY_PERIOD_W
+
+    def rewind():
+        bf.carry = clone_tree(start)
+        bf.carry.draws.set_state(state)
+        for cs in bf.controllers:
+            for c in cs:
+                c.active_size = cfg.cache_entries
+        for sc in bf.spine_controllers:
+            sc.active_size = fcfg.spine_cache_entries
+
+    def one_period():
+        m = bf.run_periods(1, pw)
+        return [m, dict(active=np.array(
+            [[c.active_size for c in cs] for cs in bf.controllers]),
+            spine=np.array([sc.active_size for sc in bf.spine_controllers]))]
+
+    with counting_plain_versions() as plain_calls:
+        kn.reset_launch_counts()
+        one_period()
+        launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
+    want = dict(subround=2 * cfg.subrounds * pw, cms=pw, hot_gather=6,
+                orbit_match=0)
+    if launches != want or any(calls.values()):
+        raise AssertionError(f"fabric_locality period launched {launches}, "
+                             f"plain {calls}; want {want}")
+    for k in total:
+        total[k] += launches[k]
+    wall_g, wall_e, n_ge, n_out, graphed = graphed_and_eager(
+        "fabric_locality_period", bf, one_period, rewind)
+    with counting_plain_versions() as plain_calls:
+        wall_ref, n_ref, n_out_ref = plain_replay(
+            "fabric_locality_period", bf, one_period, rewind, graphed)
+    r = fcfg.n_racks
+    want_plain = (cfg.subrounds * pw * p * (r + 1), pw * p * r,
+                  3 * p * (r + 1))
+    if (plain_calls["subround"], plain_calls["cms"],
+            plain_calls["hot_gather"]) != want_plain:
+        raise AssertionError(f"locality period plain replay ran "
+                             f"{plain_calls}")
+    phase("fabric_replays", cell="fabric_locality_period", points=p,
+          windows=pw, periods=1, launches=launches,
+          graphed_seconds=round(wall_g, 3), eager_seconds=round(wall_e, 3),
+          graphed_equal_eager_leaves=n_ge, equal_outputs=n_out,
+          plain_seconds=round(wall_ref, 3), plain_equal_leaves=n_ref,
+          plain_equal_outputs=n_out_ref)
+    rewind()
+    fabric_no_sync("fabric_locality_period", bf, period_w=8)
+    del bf
+    return total
 
 
 def time_against(dev, other_dir):
@@ -2295,13 +2945,22 @@ def main():
     cp_launches = run_control_plane(dev)
     run_schemes(dev)
     batched, fleet_launches = run_fleet(dev)
+    n_fab, fab_err, fab_times = check_fabric_kernels(dev)
+    phase("fabric_batched_vs_plain", cases=n_fab, equal=True,
+          max_abs_err=fab_err, nested=dict(zip(("points", "racks"),
+                                                FABRIC_NESTED)),
+          **fab_times)
+    fabric_launches = dict(fabric_paper=run_fabric_paper(dev),
+                           fabric_locality=run_fabric_locality(dev))
 
     def launches(k):
         by_path = dict(main_path=(k == "subround") * main_launches,
-                       control_plane=cp_launches[k], **fleet_launches[k])
+                       control_plane=cp_launches[k], **fleet_launches[k],
+                       **{c: v[k] for c, v in fabric_launches.items()})
         err, us = batched[k]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path,
-                    batched_max_abs_err=err, batched_device_us=us)
+                    batched_max_abs_err=max(err, fab_err),
+                    batched_device_us=us)
 
     hg = hg_calls[1]          # ids [2048] against hot [2048], the largest
 
@@ -2338,7 +2997,8 @@ def main():
              launches=om["launches"],
              launches_by_path=dict(orbit_match_entry_point=om["launches"],
                                    fleet_staircase=0, fleet_control_plane=0,
-                                   fleet_skew=0),
+                                   fleet_skew=0, fabric_paper=0,
+                                   fabric_locality=0),
              max_abs_err=om["max_abs_err"], ms=om["ms"],
              **device_times(om),
              plain_ms=om["plain_ms"], bound_ms=om["bound_ms"],

@@ -105,3 +105,19 @@ def fleet_carry_from_numpy(carry, draws, device):
     ``ReplayDraws`` row each) in place of the reference's PRNG keys."""
     from repro_torch.kvstore.fleet import FleetDraws
     return carry_from_numpy(carry, FleetDraws(draws), device)
+
+
+def fabric_carry_from_numpy(carry, draws, device):
+    """Reference ``FabricCarry`` (numpy leaves) -> the port's, with
+    ``draws`` (a ``FabricDraws``: the racks' sources and the target source)
+    in place of the reference's rack keys and ``fabric_rng``.  A stacked
+    carry (a batched fabric's, ``[P, ...]`` leaves) crosses the same way,
+    with a ``BatchedFabricDraws``."""
+    from repro_torch.kvstore.fabric_sim import FabricCarry
+    return FabricCarry(
+        racks=carry_from_numpy(carry.racks, (), device),
+        spine=from_numpy(carry.spine, device),
+        spine_clients=from_numpy(carry.spine_clients, device),
+        draws=draws,
+        local_frac=from_numpy(carry.local_frac, device),
+        spine_drops=from_numpy(carry.spine_drops, device))

@@ -24,9 +24,18 @@ A fleet of racks (``kvstore.fleet``) runs the window under
 ``cms_update_query`` and ``hot_gather`` are ``torch.library`` custom ops
 with a batching rule: the rule moves each batched input's point axis to
 the front, passes a shared input (``in_dims`` None) once with a point
-stride of 0, and makes ONE batched launch for all points (on the ``ref``
-backend it calls the plain version once per point, outside vmap).  Called
-with no batched tensor, a dispatcher takes the serial path.
+stride of 0, and calls the kernel's *points op* (``repro_torch::
+<name>_points``), which makes ONE batched launch for all points (on the
+``ref`` backend it calls the plain version once per point).  Called with
+no batched tensor, a dispatcher takes the serial path.
+
+A fabric sweep (``fleet.BatchedFabricSimulator``) nests a second vmap
+level: the racks inside the points.  A points op has its own batching
+rule, which folds the outer level into the point axis (``Q`` outer by
+``P`` inner points become ``Q * P``) and calls the points op again, so
+every level ends in the same ONE launch.  An input that one level shares
+and the other does not is expanded to the full ``Q * P`` (a kernel takes
+one stride a point); one shared by both stays shared.
 """
 from __future__ import annotations
 
@@ -191,13 +200,45 @@ def _unaliased(outs, ins):
     return [o.clone() if o.data_ptr() in ptrs else o for o in outs]
 
 
-def _per_point(fn, p, args, dims):
-    """The plain version once per point, outside vmap, stacked."""
-    per = [fn(*(a if d is None else a[i] for a, d in zip(args, dims)))
+def _per_point(fn, p, args, batched):
+    """The plain version once per point, stacked (``batched[k]``: input k
+    has the point axis first)."""
+    per = [fn(*(a[i] if bt else a for a, bt in zip(args, batched)))
            for i in range(p)]
     return [torch.stack(x) for x in zip(*per)]
 
 
+def _fold(q, p, args, dims, inner):
+    """A points op's inputs under an outer vmap level of ``q`` points
+    (``dims``: each input's axis of that level, or None): the ``[q * p,
+    ...]`` inputs of one points op, and which are batched.  ``inner[k]``:
+    input k has the op's own point axis (``p``) first."""
+    out, flags = [], []
+    for a, d, bt in zip(args, dims, inner):
+        if d is None and not bt:
+            out.append(a)
+            flags.append(False)
+            continue
+        a = a.expand((q,) + a.shape) if d is None else a.movedim(d, 0)
+        if not bt:
+            a = a.unsqueeze(1).expand((q, p) + a.shape[1:])
+        out.append(a.reshape((q * p,) + a.shape[2:]))
+        flags.append(True)
+    return out, flags
+
+
+def _has_points(args, dims, base):
+    """Whether each input carries the point axis: one dimension more than
+    its ``base`` rank, not counting the vmap level's own (``dims``)."""
+    return [a.dim() - (d is not None) > n
+            for a, d, n in zip(args, dims, base)]
+
+
+def _unfold(outs, q, p):
+    return [o.reshape((q, p) + o.shape[1:]) for o in outs], [0] * len(outs)
+
+
+# -- subround ---------------------------------------------------------------
 @torch.library.custom_op("repro_torch::subround", mutates_args=())
 def _subround_op(args: list[torch.Tensor], queue_size: int, max_frags: int,
                  max_serves: int) -> list[torch.Tensor]:
@@ -207,26 +248,50 @@ def _subround_op(args: list[torch.Tensor], queue_size: int, max_frags: int,
 
 
 def _subround_vmap(info, in_dims, args, queue_size, max_frags, max_serves):
-    from .subround.ops import subround_batched
-
-    p, dims = info.batch_size, in_dims[0]
+    dims = in_dims[0]
     args = [_front(a, d) for a, d in zip(args, dims)]
-    if kernel_backend(args[0].device) == "ref":
-        from .subround import ref as sr_ref
-        outs = _per_point(
-            lambda *a: sr_ref.subround_ref(*a, queue_size=queue_size,
-                                           max_frags=max_frags,
-                                           max_serves=max_serves),
-            p, args, dims)
-    else:
-        outs = list(subround_batched(args, [d is not None for d in dims], p,
-                                     queue_size, max_frags, max_serves))
+    outs = _subround_points_op(args, [d is not None for d in dims],
+                               info.batch_size, queue_size, max_frags,
+                               max_serves)
     return outs, [0] * len(outs)
 
 
 torch.library.register_vmap("repro_torch::subround", _subround_vmap)
 
 
+@torch.library.custom_op("repro_torch::subround_points", mutates_args=())
+def _subround_points_op(args: list[torch.Tensor], batched: list[bool],
+                        p: int, queue_size: int, max_frags: int,
+                        max_serves: int) -> list[torch.Tensor]:
+    """``p`` switch instances: ``subround_batched``'s one launch."""
+    from .subround import ref as sr_ref
+    from .subround.ops import subround_batched
+
+    if kernel_backend(args[0].device) == "ref":
+        outs = _per_point(
+            lambda *a: sr_ref.subround_ref(*a, queue_size=queue_size,
+                                           max_frags=max_frags,
+                                           max_serves=max_serves),
+            p, args, batched)
+    else:
+        outs = list(subround_batched(args, batched, p, queue_size, max_frags,
+                                     max_serves))
+    return _unaliased(outs, args)
+
+
+def _subround_points_vmap(info, in_dims, args, batched, p, queue_size,
+                          max_frags, max_serves):
+    q = info.batch_size
+    args, batched = _fold(q, p, args, in_dims[0], batched)
+    return _unfold(_subround_points_op(args, batched, q * p, queue_size,
+                                       max_frags, max_serves), q, p)
+
+
+torch.library.register_vmap("repro_torch::subround_points",
+                            _subround_points_vmap)
+
+
+# -- count-min --------------------------------------------------------------
 @torch.library.custom_op("repro_torch::cms_update_query", mutates_args=())
 def _cms_op(hkey: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor,
             block_b: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -236,7 +301,6 @@ def _cms_op(hkey: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor,
 
 def _cms_vmap(info, in_dims, hkey, mask, counts, block_b):
     from .cms import ops
-    from .cms import ref as cms_ref
 
     p = info.batch_size
     hkey, mask, counts = (_front(a, d) for a, d in
@@ -248,19 +312,44 @@ def _cms_vmap(info, in_dims, hkey, mask, counts, block_b):
         counts = counts.expand((p,) + counts.shape)
     idx = ops.rows_for(hkey, counts.shape[-1])     # [P, B, 5] or [B, 5]
     tile = ops.tile_for(hkey.shape[-2], block_b)
-    if kernel_backend(hkey.device) == "ref":
-        outs = _per_point(
-            lambda i, m, c: cms_ref.cms_update_query_fast(
-                i, m.to(torch.int32), c, block_b=tile),
-            p, (idx, mask, counts), (in_dims[0], 0, 0))
-    else:
-        outs = ops.update_query_batched(idx, mask, counts, tile)
-    return tuple(outs), (0, 0)
+    return tuple(_cms_points_op(idx, mask, counts, tile)), (0, 0)
 
 
 torch.library.register_vmap("repro_torch::cms_update_query", _cms_vmap)
 
 
+@torch.library.custom_op("repro_torch::cms_points", mutates_args=())
+def _cms_points_op(idx: torch.Tensor, mask: torch.Tensor,
+                   counts: torch.Tensor, tile: int,
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """P points' sketches ``counts[P, n, 5, W]``, ``mask[P, n, B]``, row
+    indices ``idx[P, B, 5]`` or shared ``[B, 5]``: ``update_query_batched``'s
+    one launch."""
+    from .cms import ops
+    from .cms import ref as cms_ref
+
+    if kernel_backend(idx.device) == "ref":
+        outs = _per_point(
+            lambda i, m, c: cms_ref.cms_update_query_fast(
+                i, m.to(torch.int32), c, block_b=tile),
+            counts.shape[0], (idx, mask, counts), (idx.dim() == 3, 1, 1))
+    else:
+        outs = ops.update_query_batched(idx, mask, counts, tile)
+    return tuple(_unaliased(outs, (idx, mask, counts)))
+
+
+def _cms_points_vmap(info, in_dims, idx, mask, counts, tile):
+    q, dims = info.batch_size, in_dims[:3]
+    p = _front(counts, dims[2]).shape[-4]      # [(Q,) P, n, 5, W]
+    args, _ = _fold(q, p, (idx, mask, counts), dims,
+                    _has_points((idx, mask, counts), dims, (2, 2, 3)))
+    return tuple(_unfold(_cms_points_op(*args, tile), q, p)[0]), (0, 0)
+
+
+torch.library.register_vmap("repro_torch::cms_points", _cms_points_vmap)
+
+
+# -- hot_gather -------------------------------------------------------------
 @torch.library.custom_op("repro_torch::hot_gather", mutates_args=())
 def _hot_gather_op(ids: torch.Tensor, hot_ids: torch.Tensor,
                    rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -269,16 +358,38 @@ def _hot_gather_op(ids: torch.Tensor, hot_ids: torch.Tensor,
 
 
 def _hot_gather_vmap(info, in_dims, ids, hot_ids, rows):
-    from .hot_gather import ops
-    from .hot_gather import ref as hg_ref
-
-    p = info.batch_size
     args = [_front(a, d) for a, d in zip((ids, hot_ids, rows), in_dims)]
-    if kernel_backend(ids.device) == "ref":
-        outs = _per_point(hg_ref.hot_gather_ref, p, args, in_dims)
-    else:
-        outs = ops.hot_gather_batched(*args, p)
-    return tuple(outs), (0, 0)
+    return tuple(_hot_gather_points_op(*args, info.batch_size)), (0, 0)
 
 
 torch.library.register_vmap("repro_torch::hot_gather", _hot_gather_vmap)
+
+
+@torch.library.custom_op("repro_torch::hot_gather_points", mutates_args=())
+def _hot_gather_points_op(ids: torch.Tensor, hot_ids: torch.Tensor,
+                          rows: torch.Tensor, p: int,
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """P points, each input ``[P, ...]`` or shared (one rank less):
+    ``hot_gather_batched``'s one launch."""
+    from .hot_gather import ops
+    from .hot_gather import ref as hg_ref
+
+    args = (ids, hot_ids, rows)
+    if kernel_backend(ids.device) == "ref":
+        outs = _per_point(hg_ref.hot_gather_ref, p, args,
+                          _has_points(args, (None,) * 3, (1, 1, 2)))
+    else:
+        outs = ops.hot_gather_batched(*args, p)
+    return tuple(_unaliased(outs, args))
+
+
+def _hot_gather_points_vmap(info, in_dims, ids, hot_ids, rows, p):
+    q, args = info.batch_size, (ids, hot_ids, rows)
+    args, _ = _fold(q, p, args, in_dims[:3],
+                    _has_points(args, in_dims[:3], (1, 1, 2)))
+    return tuple(_unfold(_hot_gather_points_op(*args, q * p), q, p)[0]), \
+        (0, 0)
+
+
+torch.library.register_vmap("repro_torch::hot_gather_points",
+                            _hot_gather_points_vmap)

@@ -30,6 +30,7 @@ Workload leaves are stacked only where the points differ
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -43,9 +44,9 @@ from repro_torch.interop import to_numpy
 from . import client as cl
 from .simulator import (
     CompiledChunk, RackConfig, SimCarry, SimResult, WindowMetrics,
-    build_fetch_batch, chunked_run, controller_window_apply, init_carry,
-    make_client_config, make_server_config, period_windows, tree_stack,
-    tree_take, window_step,
+    build_fetch_batch, chunk_graphs, chunked_run, controller_window_apply,
+    init_carry, make_client_config, make_server_config, period_windows,
+    tree_stack, tree_take, window_step,
 )
 from .workload import Workload, WorkloadArrays
 
@@ -153,10 +154,11 @@ class FleetChunk(CompiledChunk):
 
 
 def _points_major(tree):
-    """A chunk's ``[n, P, ...]`` rows (numpy) as the reference's ``[P, n,
-    ...]``."""
-    return type(tree)(*(np.ascontiguousarray(np.moveaxis(v, 0, 1))
-                        for v in tree))
+    """A chunk's ``[n, P, ...]`` rows (numpy, a tree) as the reference's
+    ``[P, n, ...]``."""
+    if isinstance(tree, np.ndarray):
+        return np.ascontiguousarray(np.moveaxis(tree, 0, 1))
+    return type(tree)(*(_points_major(v) for v in tree))
 
 
 class BatchedRackSimulator:
@@ -248,13 +250,9 @@ class BatchedRackSimulator:
                        workloads[i].cfg.num_keys, offered[i], ratios[i], (),
                        self.device)
             for i in range(n)])._replace(draws=FleetDraws(draws))
-        device = torch.device(self.device)
-        if graphs is None:
-            graphs = device.type == "cuda"
-        if graphs and device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
         self.chunk = FleetChunk(cfg, self.server_cfg, self.client_cfg,
-                                self.key_size, device, graphs, n)
+                                self.key_size, self.device,
+                                chunk_graphs(self.device, graphs), n)
         self.refresh_workloads()
 
     def refresh_workloads(self) -> None:
@@ -388,3 +386,132 @@ class BatchedRackSimulator:
                                     active_size=self.controllers[i]
                                     .active_size))
                 for i in range(self.n_points)]
+
+
+# ---------------------------------------------------------------------------
+# fabric mode: vmapped two-tier (racks + spine) sweeps
+# ---------------------------------------------------------------------------
+class BatchedFabricSimulator:
+    """N whole fabrics (R racks + spine each) advancing in lockstep, one
+    per sweep point: the points share the rack and fabric geometry and the
+    workload, and may differ in rack-local fraction, offered load and
+    seeds (the locality sweep runs its points this way).
+
+    The window is ``fabric_sim.fabric_window`` under ``torch.func.vmap``
+    over the points, with the racks vmapped again inside: each kernel stays
+    ONE launch per call site for all points and racks (the points ops'
+    batching rules, ``repro_torch.kernels``).  Args are the reference's,
+    plus ``device``, ``draws`` (one ``FabricDraws`` per point; default each
+    point's serial fabric's) and ``graphs``."""
+
+    def __init__(self, cfg: RackConfig, fcfg, wl: Workload,
+                 local_fracs: Sequence[float] | None = None,
+                 offered_rps: Sequence[float] | float | None = None,
+                 seeds: Sequence[int] | None = None,
+                 n_points: int | None = None, device=None, draws=None,
+                 graphs: bool | None = None):
+        from .fabric_sim import FabricChunk, FabricSimulator
+
+        n = max(len(local_fracs) if local_fracs is not None else 1,
+                len(offered_rps) if isinstance(offered_rps, (list, tuple))
+                else 1,
+                len(seeds) if seeds is not None else 1,
+                len(draws) if draws is not None else 1, n_points or 1)
+
+        def bcast(xs, what):
+            xs = list(xs)
+            if len(xs) == 1:
+                return xs * n
+            if len(xs) != n:
+                raise ValueError(f"{what}: got {len(xs)} entries for {n} "
+                                 f"sweep points")
+            return xs
+
+        fracs = bcast(local_fracs if local_fracs is not None
+                      else [fcfg.local_frac], "local_fracs")
+        seeds = bcast(seeds if seeds is not None
+                      else [cfg.seed + 1000 * i for i in range(n)], "seeds")
+        if offered_rps is not None and np.isscalar(offered_rps):
+            offered_rps = [float(offered_rps)]
+        offered = (bcast(offered_rps, "offered_rps")
+                   if offered_rps is not None else None)
+        draws = bcast(draws, "draws") if draws is not None else [None] * n
+        if draws[0] is not None and len({id(d) for d in draws}) != n:
+            raise ValueError("every sweep point needs its own draw source")
+        self.cfg, self.fcfg, self.wl = cfg, fcfg, wl
+        self.n_points = n
+        self.device = resolve_device(device)
+        # each point a serial fabric (the host-side preload is per point),
+        # stacked after the preload
+        self._sims = [
+            FabricSimulator(dataclasses.replace(cfg, seed=seeds[i]), fcfg,
+                            wl, device=self.device, draws=draws[i],
+                            graphs=False)
+            for i in range(n)]
+        for i, sim in enumerate(self._sims):
+            sim.set_local_frac(fracs[i])
+            if offered is not None:
+                sim.set_offered(offered[i])
+        s0 = self._sims[0]
+        self.server_cfg, self.client_cfg = s0.server_cfg, s0.client_cfg
+        self.key_size = s0.key_size
+        self.carry = None              # stacked at the preload
+        self.chunk = FabricChunk(cfg, fcfg, self.server_cfg, self.client_cfg,
+                                 self.key_size, self.device,
+                                 chunk_graphs(self.device, graphs), n)
+
+    def preload(self, warm_windows: int = 16) -> None:
+        """Each point's host-side table surgery, then the warm-up windows
+        through the batched chunk."""
+        if self._sims is None:
+            raise RuntimeError("fabric sweep already stacked — preload once, "
+                               "before the first run_windows()")
+        for sim in self._sims:
+            sim.preload(warm_windows=0)
+        self._stack()
+        if self.cfg.scheme == "orbitcache" and warm_windows > 0:
+            self.run_windows(warm_windows)
+
+    def _stack(self) -> None:
+        from .fabric_sim import BatchedFabricDraws
+
+        sims = self._sims
+        self.carry = tree_stack([s.carry for s in sims])._replace(
+            draws=BatchedFabricDraws(s.carry.draws for s in sims))
+        self.controllers = [s.controllers for s in sims]
+        self.spine_controllers = [s.spine_controller for s in sims]
+        # the per-point carries are dead once stacked
+        self._sims = None
+
+    def run_windows(self, n: int) -> dict[str, np.ndarray]:
+        """Advance every fabric ``n`` windows; rack traces are ``[N, n, R,
+        ...]``, spine traces ``[N, n]``.  ``self.carry`` then is the
+        chunk's buffers (clone to keep)."""
+        from .fabric_sim import fabric_metrics_dict
+
+        if self.carry is None:
+            self._stack()
+        self.carry, m = self.chunk(self.wl.arrays, self.carry, n)
+        return fabric_metrics_dict(_points_major(to_numpy(m)))
+
+    def run_periods(self, n_periods: int,
+                    period_w: int) -> dict[str, np.ndarray]:
+        """Advance every fabric ``n_periods`` control-plane periods, every
+        point's rack controllers and spine controller on the device (active
+        sizes ``[N, R]`` and ``[N]``)."""
+        from .fabric_sim import fabric_metrics_dict
+
+        if self.carry is None:
+            self._stack()
+        self.carry, (ra, sa), m, _ = self.chunk.controller_chunk(
+            self.wl.arrays, self.carry,
+            ([[c.active_size for c in cs] for cs in self.controllers],
+             [s.active_size for s in self.spine_controllers]),
+            (self.controllers[0][0].cfg, self.spine_controllers[0].cfg),
+            n_periods, period_w)
+        for cs, row in zip(self.controllers, ra.tolist()):
+            for c, a in zip(cs, row):
+                c.active_size = int(a)
+        for s, a in zip(self.spine_controllers, sa.tolist()):
+            s.active_size = int(a)
+        return fabric_metrics_dict(_points_major(to_numpy(m)))

@@ -33,7 +33,7 @@ from repro_torch.baselines import (
 )
 from repro_torch.core import pipeline
 from repro_torch.core.controller import (
-    CacheController, ControllerConfig, TracedUpdate, controller_step,
+    CacheController, ControllerConfig, controller_step,
 )
 from repro_torch.core.hashing import hash128_u32, server_of_key
 from repro_torch.core.types import (
@@ -427,14 +427,21 @@ def chunked_run(total_windows: int, chunk_windows: int,
     return traces
 
 
+def tree_map(fn, tree):
+    """``fn`` of every tensor leaf of a tree of (Named)tuples; other leaves
+    (a draw source) as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        items = [tree_map(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else tuple(items)
+    return tree
+
+
 def _clone_tree(x):
     """A copy of every tensor leaf of a tree (other leaves shared)."""
-    if isinstance(x, torch.Tensor):
-        return x.clone()
-    if isinstance(x, tuple):
-        items = [_clone_tree(v) for v in x]
-        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
-    return x
+    return tree_map(torch.clone, x)
 
 
 def _copy_tree_(dst, src) -> None:
@@ -464,25 +471,23 @@ def tree_stack(trees):
 
 def tree_take(tree, i: int):
     """Point ``i`` of a stacked tree (other leaves as they are)."""
-    if isinstance(tree, torch.Tensor):
-        return tree[i]
-    if isinstance(tree, tuple):
-        items = [tree_take(v, i) for v in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") \
-            else tuple(items)
-    return tree
+    return tree_map(lambda v: v[i], tree)
 
 
 def _write_row_(bufs, row, idx: torch.Tensor):
-    """``bufs[i][idx] = row[i]`` for every leaf, at a device index."""
-    for b, v in zip(bufs, row, strict=True):
-        b.index_copy_(0, idx, v[None])
+    """``bufs[idx] = row`` for every tensor leaf of a tree, at a device
+    index."""
+    if isinstance(bufs, torch.Tensor):
+        bufs.index_copy_(0, idx, row[None])
+    else:
+        for b, v in zip(bufs, row, strict=True):
+            _write_row_(b, v, idx)
 
 
 def _rows(tree, cap: int):
     """Zeroed ``[cap, ...]`` buffers shaped like the leaves of ``tree``."""
-    return type(tree)(*(torch.zeros((cap,) + v.shape, dtype=v.dtype,
-                                    device=v.device) for v in tree))
+    return tree_map(lambda v: torch.zeros((cap,) + v.shape, dtype=v.dtype,
+                                          device=v.device), tree)
 
 
 class CompiledChunk:
@@ -575,7 +580,7 @@ class CompiledChunk:
         buffers."""
         self._start(wl, carry, n, 0)
         self._run("window", self.window_body, n)
-        return self.carry, WindowMetrics(*(b[:n] for b in self.metrics))
+        return self.carry, tree_map(lambda b: b[:n], self.metrics)
 
     def controller_chunk(self, wl: WorkloadArrays, carry: SimCarry,
                          active_size: int, ctrl_cfg: ControllerConfig,
@@ -593,8 +598,8 @@ class CompiledChunk:
             self._run("period", self.period_body, 1)
         n = n_periods * period_w
         return (self.carry, self.active,
-                WindowMetrics(*(b[:n] for b in self.metrics)),
-                TracedUpdate(*(b[:n_periods] for b in self.updates)))
+                tree_map(lambda b: b[:n], self.metrics),
+                tree_map(lambda b: b[:n_periods], self.updates))
 
     def _start(self, wl, carry, n_windows: int, n_periods: int) -> None:
         if n_windows < 1:
@@ -643,8 +648,8 @@ class CompiledChunk:
         t0 = time.perf_counter()
         draws = self.carry.draws
         saved = (_clone_tree(self.carry), draws.get_state(),
-                 self.active.clone(), self.w_idx.clone(), self.p_idx.clone(),
-                 dict(kn.LAUNCHES))
+                 _clone_tree(self.active), self.w_idx.clone(),
+                 self.p_idx.clone(), dict(kn.LAUNCHES))
         body()
         _copy_tree_((self.carry, self.active, self.w_idx, self.p_idx),
                     (saved[0], *saved[2:5]))
@@ -666,19 +671,24 @@ class CompiledChunk:
         return graph, counts
 
 
-def compiled_chunk(cfg: RackConfig, server_cfg: ServerConfig,
-                   client_cfg: cl.ClientConfig, key_size: int, device,
-                   graphs: bool | None = None) -> CompiledChunk:
-    """A simulator's chunk (:class:`CompiledChunk`); ``graphs`` defaults
-    to CUDA graphs on a CUDA device, and asking for them elsewhere
-    raises."""
-    device = torch.device(device)
+def chunk_graphs(device: torch.device, graphs: bool | None) -> bool:
+    """Whether a chunk on ``device`` replays CUDA graphs: by default on a
+    CUDA device; asking for them elsewhere raises."""
     if graphs is None:
         graphs = device.type == "cuda"
     if graphs and device.type != "cuda":
         raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+    return graphs
+
+
+def compiled_chunk(cfg: RackConfig, server_cfg: ServerConfig,
+                   client_cfg: cl.ClientConfig, key_size: int, device,
+                   graphs: bool | None = None) -> CompiledChunk:
+    """A simulator's chunk (:class:`CompiledChunk`), graphed as
+    :func:`chunk_graphs` says."""
+    device = torch.device(device)
     return CompiledChunk(cfg, server_cfg, client_cfg, key_size, device,
-                         graphs)
+                         chunk_graphs(device, graphs))
 
 
 @dataclass
