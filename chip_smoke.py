@@ -122,6 +122,33 @@ line; any failure exits non-zero:
    graphed fabric of its seed and locality, ``no_sync``; then OrbitCache
    with tracking on, one period of 16 windows: 1 ``cms`` a window and 6
    ``hot_gather``, graphed = eager = plain.
+16. ``composed_vs_fused``: on the paper rack at 10 % writes, for
+   OrbitCache, NetCache and NoCache, 24 windows after the preload from one
+   carry and one set of draws through the fused ``window_step`` (one
+   ``subround`` launch a subround) and through the composed window of
+   ``tests/torch_composed.py`` (``lookup``, ``request_table``,
+   ``state_table``, ``orbit``; plain PyTorch on the card): every metric
+   and carry leaf equal, each window; then ``switch_step`` against the
+   composed seed step on the four edge cases (zero budget, full queues,
+   multi-fragment lines, all-invalid ingress), 17 steps; no plain version
+   runs, and only OrbitCache's fused side launches (96 + 17 ``subround``);
+17. ``ring_stacked``: ``StackedRing(8)`` from the start of
+   ``tests/test_distributed_ring.py`` over a revolution, equal on the
+   card and on the CPU leaf for leaf; every request served once with its
+   entry's bytes, the queues drained; no kernel launched;
+18. ``orbit_service``: 8 stacked positions, ``ServiceConfig`` defaults,
+   the paper's 10M keys (a 2.4 GiB store of 256-B values on the card,
+   value = ``synth_value(key, 0)``), the 64 hottest keys installed as
+   orbit lines, 200 steps of Zipf-0.99 lookups (the workload's CDF) timed,
+   then 16 steps with no lookups: cold values byte exact, every hot lookup
+   served exactly once with its key's bytes and the queues empty, the
+   first 4 steps equal to a CPU run; steps/s, lookups/s, the hot, cold
+   and unanswered shares beside the ``nvidia-smi`` line;
+19. ``ring_process``: a one-rank ``nccl`` ``ProcessRing`` (a barrier
+   first), equal to ``StackedRing(1)`` leaf for leaf over 16 service
+   steps.  Rings of D > 1 processes are checked with gloo on the CPU only
+   (``tests/test_torch_distributed_ring.py``,
+   ``tests/test_torch_orbit_service.py``).
 
 Every phase line carries ``t_s``, the seconds since the script started.
 The line before the last two is the kernels' JSON record; the last line is
@@ -131,6 +158,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -139,6 +167,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+sys.path.insert(0, os.path.join(HERE, "tests"))     # torch_composed.py
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -2780,6 +2809,366 @@ def run_fabric_locality(dev):
     return total
 
 
+# --------------------------------------------------------------------------
+# the composed switch path and the orbit ring service (phases 16-19)
+# --------------------------------------------------------------------------
+COMPOSED_WINDOWS = 24         # windows a scheme, fused against composed
+RING_D = 8                    # tests/test_distributed_ring.py's ring
+SERVICE_D = 8                 # stacked ring positions of the service
+SERVICE_STEPS = 200           # Zipf steps of the service, timed
+SERVICE_CPU_STEPS = 4         # its first steps, card against CPU
+RING_PROCESS_STEPS = 16
+SYNTH_CHUNK = 1 << 18         # keys a chunk when filling the store
+
+
+def same_on_card(a, b, path):
+    """Assert two trees of tensors on one device equal leaf for leaf
+    (dtype, shape, values); returns the leaves compared."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"differs at {path}")
+        return 1
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return sum(same_on_card(x, y, f"{path}.{n}")
+                   for n, x, y in zip(a._fields, a, b))
+    if isinstance(a, tuple):
+        return sum(same_on_card(x, y, f"{path}[{i}]")
+                   for i, (x, y) in enumerate(zip(a, b)))
+    return 0
+
+
+def nvidia_smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def run_composed_vs_fused(dev):
+    """The fused ``window_step`` (the subround kernel) against the composed
+    window of ``tests/torch_composed.py`` (plain PyTorch on the card) for
+    each scheme on the paper rack, then ``switch_step`` against the
+    composed seed step on the four edge cases; returns the launches."""
+    import torch_composed as tc
+
+    from repro_torch import kernels as kn
+    from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
+    from repro_torch.kvstore.simulator import RackSimulator
+    from repro_torch.kvstore.workload import Workload
+
+    wl = Workload(WORKLOAD, device=dev)
+    launches = dict.fromkeys(kn.LAUNCHES, 0)
+
+    def drive(label, fn, want_subround):
+        with counting_plain_versions() as plain_calls:
+            kn.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got, calls = dict(kn.LAUNCHES), dict(plain_calls)
+        want = dict.fromkeys(got, 0)
+        want["subround"] = want_subround
+        if got != want or any(calls.values()):
+            raise AssertionError(f"{label}: launches {got}, plain {calls}")
+        launches["subround"] += got["subround"]
+        return out, wall
+
+    for scheme in ("orbitcache", "netcache", "nocache"):
+        rack = dataclasses.replace(RACK, scheme=scheme)
+        sim = RackSimulator(rack, wl, device=dev)
+        if scheme == "orbitcache":
+            sim.preload(wl.hottest_keys(rack.cache_entries))
+        elif scheme == "netcache":
+            sim.preload(wl.hottest_keys(rack.netcache_entries))
+        # writes on, so that invalidations and reply installs run
+        sim.carry = sim.carry._replace(write_ratio=torch.tensor(
+            0.1, dtype=torch.float32, device=dev))
+        n_sub = rack.subrounds * COMPOSED_WINDOWS * (scheme == "orbitcache")
+        (leaves, carry), wall = drive(
+            scheme, lambda: tc.fused_and_composed(sim, COMPOSED_WINDOWS,
+                                                  same_on_card), n_sub)
+        cs = carry.clients
+        phase("composed_vs_fused", scheme=scheme, windows=COMPOSED_WINDOWS,
+              write_ratio=0.1, equal_leaves=leaves, subround_launches=n_sub,
+              seconds=round(wall, 3), rx_switch=int(cs.rx_switch),
+              rx_server=int(cs.rx_server), mismatches=int(cs.mismatches))
+        if scheme != "nocache" and not int(cs.rx_switch) > 0:
+            raise AssertionError(f"{scheme}: the switch served nothing")
+
+    cases = tc.edge_cases(dev)
+    n_steps = sum(len(steps) for _, steps, _ in cases.values())
+    leaves, _ = drive("edge cases", lambda: sum(
+        tc.run_compare(sw, steps, name, same_on_card)[1]
+        for name, (sw, steps, _) in cases.items()), n_steps)
+    phase("composed_vs_fused", cases=sorted(cases), steps=n_steps,
+          equal_leaves=leaves, subround_launches=n_steps)
+    return launches
+
+
+def ring_setup(d, device):
+    """The start state and packets of ``tests/test_distributed_ring.py``
+    (entries 0..3 installed, position p < 4 holding entry p's line of
+    byte p + 1, four reads of keys 0..3 a position) on ``d`` positions."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import lookup as lk
+    from repro_torch.core.hashing import hash128_u32
+    from repro_torch.core.types import OP_NONE, OP_R_REQ, PacketBatch
+
+    c, s, l, pad, b = 16, 4, 4, 64, 8
+    i32 = torch.int32
+    one = dist.init_ring_state(c, s, l, pad, "cpu")
+    st = dist.tree_map_dims(lambda x: x.expand((d,) + x.shape).clone(), one,
+                            dist.RING_DIMS)
+    keys = torch.arange(4, dtype=i32)
+    valid = st.state.valid.clone()
+    valid[:4] = True
+    sl = st.slice
+    for p in range(min(4, d)):
+        sl.live[p, 0], sl.cidx[p, 0], sl.kidx[p, 0] = True, p, p
+        sl.vlen[p, 0] = 32
+        sl.val[p, 0, :32] = p + 1
+    st = st._replace(lookup=lk.install(st.lookup, keys, hash128_u32(keys),
+                                       keys),
+                     state=st.state._replace(valid=valid))
+    op = torch.full((d, b), OP_NONE, dtype=i32)
+    op[:, :4] = OP_R_REQ
+    kq = torch.zeros((d, b), dtype=i32)
+    kq[:, :4] = keys
+    zeros = torch.zeros((d, b), dtype=i32)
+    pk = PacketBatch(
+        op=op, seq=torch.arange(d * b, dtype=i32).reshape(d, b),
+        hkey=hash128_u32(kq), flag=zeros, kidx=kq,
+        vlen=torch.full((d, b), 32, dtype=i32), client=zeros, port=zeros,
+        server=zeros, ts=torch.zeros((d, b)), valid=op == OP_R_REQ,
+        val=torch.zeros((d, b, pad), dtype=torch.uint8))
+    empty = PacketBatch(*(torch.zeros_like(x) for x in pk))
+    return clone_tree(st, device), clone_tree(pk, device), \
+        clone_tree(empty, device)
+
+
+def run_ring_stacked(dev):
+    """``StackedRing(8)`` on the card over a revolution from the reference
+    ring test's start: equal to the same run on the CPU leaf for leaf,
+    every request served once with its entry's bytes, queues drained."""
+    from repro_torch import kernels as kn
+    from repro_torch.core import distributed as dist
+    from repro_torch.interop import to_numpy
+
+    step = dist.make_ring_step(dist.StackedRing(RING_D), clones_per_visit=4)
+    runs = []
+    kn.reset_launch_counts()
+    for where in (dev, torch.device("cpu")):
+        st, pk, empty = ring_setup(RING_D, where)
+        outs = []
+        for k in range(RING_D + 1):
+            st, serve = step(st, pk if k == 0 else empty)
+            outs.append(to_numpy((st, serve)))
+        runs.append(outs)
+    if any(kn.LAUNCHES.values()):
+        raise AssertionError(f"the ring launched {kn.LAUNCHES}")
+    card, cpu = runs
+    leaves = sum(compare_trees(a, b, f"ring step {k}")
+                 for k, (a, b) in enumerate(zip(card, cpu)))
+    total, wrong = 0, 0
+    for st, serve in card:
+        total += int(serve.served.sum())
+        for c in range(4):
+            hit = serve.served[:, c].any(axis=-1)
+            wrong += int((serve.val[hit, c, 0] != c + 1).sum())
+    qlen = int(card[-1][0].reqtab.qlen.astype(np.int64).sum())
+    phase("ring_stacked", positions=RING_D, steps=RING_D + 1,
+          card_equals_cpu_leaves=leaves, served=total,
+          expected=RING_D * 4, wrong_value_bytes=wrong, queued_after=qlen)
+    if total != RING_D * 4 or wrong or qlen:
+        raise AssertionError("the ring's revolution checks failed")
+
+
+def service_setup(cfg, n_keys, d, hot, device):
+    """A service of ``d`` stacked positions over ``n_keys`` keys, each
+    value ``synth_value(key, 0)``, with the keys ``hot`` (``d *
+    slice_len`` of them) installed in entries 0.. and circulating as
+    orbit lines, position p holding lines p * slice_len ..."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import lookup as lk
+    from repro_torch.core.hashing import hash128_u32
+    from repro_torch.kvstore.store import synth_value
+    from repro_torch.serving import orbit_service as svc
+
+    st = svc.init_service(cfg, n_keys, d, device=device)
+    vals = st.store_vals.view(-1, cfg.value_pad)
+    flat_keys = st.store_keys.reshape(-1)
+    for i in range(0, flat_keys.shape[0], SYNTH_CHUNK):
+        k = flat_keys[i:i + SYNTH_CHUNK]
+        vals[i:i + SYNTH_CHUNK] = synth_value(k, torch.zeros_like(k),
+                                              cfg.value_pad)
+    n = hot.shape[0]
+    cidx = torch.arange(n, dtype=torch.int32, device=device)
+    rs = st.ring
+    valid = rs.state.valid.clone()
+    valid[:n] = True
+    per = lambda x: x.reshape((d, n // d) + x.shape[1:])
+    ring = dist.StackedRing(d)
+    sl = ring.map(dist.install_into_slice, (
+        rs.slice, per(cidx), per(torch.ones(n, dtype=torch.bool,
+                                            device=device)),
+        per(hot), per(torch.zeros_like(hot)),
+        per(torch.full_like(hot, cfg.value_pad)),
+        per(synth_value(hot, torch.zeros_like(hot), cfg.value_pad))),
+        (0,) * 7, 0)
+    return st._replace(ring=rs._replace(
+        lookup=lk.install(rs.lookup, cidx, hash128_u32(hot), hot),
+        state=rs.state._replace(valid=valid), slice=sl))
+
+
+def zipf_keys(wl, shape, seed, device):
+    """Keys drawn Zipf over the workload's ranks, as the clients draw."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    u = torch.rand(shape, generator=gen, device=device)
+    ranks = torch.searchsorted(wl.cdf, u)
+    return wl.perm[torch.clamp(ranks, 0, wl.perm.shape[0] - 1)]
+
+
+def run_orbit_service(dev):
+    """The service at the paper's 10M keys (a 2.56 GB store of 256-B
+    values on the card), 8 stacked positions, ``ServiceConfig`` defaults,
+    Zipf-0.99 lookups, the 64 hottest keys circulating: cold values byte
+    exact, every hot lookup served once with its key's bytes, the first
+    steps equal to a CPU run."""
+    from repro_torch import kernels as kn
+    from repro_torch.configs.orbitcache_paper import WORKLOAD
+    from repro_torch.core import distributed as dist
+    from repro_torch.interop import to_numpy
+    from repro_torch.kvstore.store import synth_value
+    from repro_torch.kvstore.workload import Workload
+    from repro_torch.serving import orbit_service as svc
+
+    cfg, d = svc.ServiceConfig(), SERVICE_D
+    t0 = time.perf_counter()
+    wl = Workload(WORKLOAD, device=dev)
+    hot = torch.from_numpy(wl.hottest_keys(d * cfg.slice_len)).to(dev)
+    st0 = service_setup(cfg, WORKLOAD.num_keys, d, hot, dev)
+    keys = zipf_keys(wl, (SERVICE_STEPS, d, cfg.local_batch), 0, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    step = svc.make_service_step(dist.StackedRing(d), cfg)
+    ones = torch.ones((d, cfg.local_batch), dtype=torch.bool, device=dev)
+    drain = 2 * d             # ceil(queue_size / clones_per_visit) turns
+
+    kn.reset_launch_counts()
+    st, outs = st0, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(SERVICE_STEPS):
+        st, res, cold, hot_m, serve = step(st, keys[k], ones)
+        outs.append((res, cold, hot_m, serve))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    drained = []
+    for _ in range(drain):
+        st, res, cold, hot_m, serve = step(st, keys[0], ~ones)
+        drained.append(serve)
+    if any(kn.LAUNCHES.values()):
+        raise AssertionError(f"the service launched {kn.LAUNCHES}")
+    # device time of a step, from a profile of its first PROFILE_WINDOWS
+    busy = busy_per_window(lambda: functools.reduce(
+        lambda s, k: step(s, keys[k], ones)[0], range(PROFILE_WINDOWS),
+        st0), PROFILE_WINDOWS)
+
+    lookup_kidx = st.ring.lookup.kidx
+    n_hot = n_cold = bad_cold = served = bad_hot = 0
+    for k, (res, cold, hot_m, serve) in enumerate(outs):
+        want = synth_value(keys[k], torch.zeros_like(keys[k]), cfg.value_pad)
+        bad_cold += int(((res != want).any(-1) & cold).sum())
+        n_hot += int(hot_m.sum())
+        n_cold += int(cold.sum())
+    for serve in [o[3] for o in outs] + drained:
+        rows = serve.served.any(-1)
+        served += int(serve.served.sum())
+        want = synth_value(serve.kidx, torch.zeros_like(serve.kidx),
+                           cfg.value_pad)
+        bad_hot += int((((serve.val != want).any(-1)
+                         | (serve.kidx != lookup_kidx[None, :])) & rows).sum())
+    queued = int(st.ring.reqtab.qlen.sum())
+    lookups = SERVICE_STEPS * d * cfg.local_batch
+
+    # the card against the CPU over the first steps
+    cpu_step = svc.make_service_step(dist.StackedRing(d), cfg)
+    st_c, st_g = clone_tree(st0, torch.device("cpu")), st0
+    leaves = 0
+    for k in range(SERVICE_CPU_STEPS):
+        st_c, *out_c = cpu_step(st_c, keys[k].cpu(), ones.cpu())
+        st_g, *out_g = step(st_g, keys[k], ones)
+        leaves += compare_trees(to_numpy((st_g.ring, *out_g)),
+                                to_numpy((st_c.ring, *out_c)),
+                                f"service step {k}")
+    phase("orbit_service", positions=d, config=cfg._asdict(),
+          num_keys=WORKLOAD.num_keys,
+          store_gib=round(st0.store_vals.numel() / 2**30, 3),
+          setup_s=round(setup_s, 2), steps=SERVICE_STEPS,
+          steps_per_s=round(SERVICE_STEPS / wall, 1),
+          lookups_per_s=round(lookups / wall, 1),
+          step_rates=rates(SERVICE_STEPS, wall, busy),
+          hot_share=n_hot / lookups, cold_share=n_cold / lookups,
+          unanswered_share=(lookups - n_hot - n_cold) / lookups,
+          hot_served=served, hot_queued=n_hot, queued_after_drain=queued,
+          drain_steps=drain, wrong_cold_values=bad_cold,
+          wrong_hot_values=bad_hot, card_equals_cpu_steps=SERVICE_CPU_STEPS,
+          card_equals_cpu_leaves=leaves, nvidia_smi=nvidia_smi())
+    if bad_cold or bad_hot or queued or served != n_hot or not n_cold:
+        raise AssertionError("the service's checks failed")
+
+
+def run_ring_process(dev):
+    """A one-rank ``nccl`` ``ProcessRing`` on the card, equal to
+    ``StackedRing(1)`` over service steps (one position of 2**16 keys, its
+    8 hottest circulating).  D > 1 across processes is checked only with
+    gloo on the CPU (tests/test_torch_distributed_ring.py,
+    tests/test_torch_orbit_service.py): this machine has one card."""
+    import socket
+
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as dist
+    from repro_torch.kvstore.workload import Workload, WorkloadConfig
+    from repro_torch.serving import orbit_service as svc
+
+    cfg = svc.ServiceConfig()
+    wl = Workload(WorkloadConfig(num_keys=1 << 16), device=dev)
+    hot = torch.from_numpy(wl.hottest_keys(cfg.slice_len)).to(dev)
+    st0 = service_setup(cfg, 1 << 16, 1, hot, dev)
+    keys = zipf_keys(wl, (RING_PROCESS_STEPS, 1, cfg.local_batch), 1, dev)
+    mask = torch.ones((1, cfg.local_batch), dtype=torch.bool, device=dev)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             rank=0, world_size=1, device_id=dev)
+    try:
+        tdist.barrier()
+        ring = dist.ProcessRing()
+        stacked = svc.make_service_step(dist.StackedRing(1), cfg)
+        local = svc.make_service_step(ring, cfg)
+        st_s, st_p = st0, ring.local(st0, svc.SERVICE_DIMS)
+        leaves = 0
+        for k in range(RING_PROCESS_STEPS):
+            st_s, *out_s = stacked(st_s, keys[k], mask)
+            st_p, *out_p = local(st_p, ring.local(keys[k]),
+                                 ring.local(mask))
+            leaves += same_on_card(
+                (st_p, *out_p), (ring.local(st_s, svc.SERVICE_DIMS),
+                                 *(ring.local(o) for o in out_s)),
+                f"ring_process step {k}")
+        backend = tdist.get_backend()
+    finally:
+        tdist.destroy_process_group()
+    phase("ring_process", backend=backend, world_size=1,
+          steps=RING_PROCESS_STEPS, equal_leaves=leaves,
+          note="D > 1 across processes is verified with gloo on the CPU "
+               "only; one card here")
+
+
 def time_against(dev, other_dir):
     """``--against DIR``: time the four kernels built from
     ``DIR/{subround,cms,hot_gather,orbit_match}.cu`` (other versions with
@@ -2899,10 +3288,7 @@ def main():
     from repro_torch.kernels.subround import kernel as sr_kernel
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     phase("device", nvidia_smi=smi, torch_device=name,
           torch=torch.__version__, cuda=torch.version.cuda)
@@ -2952,11 +3338,16 @@ def main():
           **fab_times)
     fabric_launches = dict(fabric_paper=run_fabric_paper(dev),
                            fabric_locality=run_fabric_locality(dev))
+    reg_launches = run_composed_vs_fused(dev)
+    run_ring_stacked(dev)
+    run_orbit_service(dev)
+    run_ring_process(dev)
 
     def launches(k):
         by_path = dict(main_path=(k == "subround") * main_launches,
                        control_plane=cp_launches[k], **fleet_launches[k],
-                       **{c: v[k] for c, v in fabric_launches.items()})
+                       **{c: v[k] for c, v in fabric_launches.items()},
+                       switch_regression=reg_launches[k])
         err, us = batched[k]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path,
                     batched_max_abs_err=max(err, fab_err),
@@ -2998,7 +3389,9 @@ def main():
              launches_by_path=dict(orbit_match_entry_point=om["launches"],
                                    fleet_staircase=0, fleet_control_plane=0,
                                    fleet_skew=0, fabric_paper=0,
-                                   fabric_locality=0),
+                                   fabric_locality=0,
+                                   switch_regression=reg_launches[
+                                       "orbit_match"]),
              max_abs_err=om["max_abs_err"], ms=om["ms"],
              **device_times(om),
              plain_ms=om["plain_ms"], bound_ms=om["bound_ms"],

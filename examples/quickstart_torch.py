@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.core.controller import CacheController, ControllerConfig
 from repro_torch.core.hashing import hash128_u32
-from repro_torch.core.pipeline import switch_pipeline
+from repro_torch.core.switch import switch_step
 from repro_torch.core.types import (
     OP_F_REP, OP_R_REQ, OP_W_REQ, empty_batch, init_switch_state,
     resolve_device,
@@ -58,28 +58,28 @@ def main():
                  flag=torch.ones(4, dtype=torch.int32, device=dev),
                  vlen=torch.full((4,), 128, dtype=torch.int32, device=dev),
                  val=synth_value(ks, torch.zeros_like(ks), PAD))
-    sw, out = switch_pipeline(sw, pk, budget, 4)
+    sw, out = switch_step(sw, pk, budget, 4)
     print(f"installed {int(out.stats.n_install)} orbit lines "
           f"(cache packets now circulating)")
 
     # a burst of reads for hot key 0: ONE orbit line serves all of them
-    sw, out = switch_pipeline(sw, packets(dev, [OP_R_REQ] * 4, [0] * 4),
-                              budget, 4)
+    sw, out = switch_step(sw, packets(dev, [OP_R_REQ] * 4, [0] * 4),
+                          budget, 4)
     print(f"burst of 4 reads for key 0: hits={int(out.stats.n_hit)} "
           f"served-by-orbit={int(out.stats.n_served)} (PRE cloning)")
 
     # a write invalidates; reads fall through to the server until the
     # write reply carries the new value back
-    sw, out = switch_pipeline(sw, packets(dev, [OP_W_REQ], [0]), budget, 4)
+    sw, out = switch_step(sw, packets(dev, [OP_W_REQ], [0]), budget, 4)
     print(f"write to key 0: FLAG={int(out.flag[0])} "
           f"valid={bool(sw.state.valid[0])} "
           f"line-live={bool(sw.orbit.live[0])}")
 
-    sw, out = switch_pipeline(sw, packets(dev, [OP_R_REQ], [0]), budget, 4)
+    sw, out = switch_step(sw, packets(dev, [OP_R_REQ], [0]), budget, 4)
     print(f"read while invalid: routed-to-server={int(out.route[0]) == 1} "
           f"(coherence: stale value can never be served)")
 
-    sw, out = switch_pipeline(sw, packets(dev, [OP_R_REQ], [1000]), budget, 4)
+    sw, out = switch_step(sw, packets(dev, [OP_R_REQ], [1000]), budget, 4)
     print(f"read of uncached key: hit={int(out.stats.n_hit)} -> server")
     print("OK")
 

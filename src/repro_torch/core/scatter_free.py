@@ -33,3 +33,22 @@ def last_writer(dest: torch.Tensor, mask: torch.Tensor, size: int,
     w = w.scatter_reduce(0, tgt, lanes, reduce="amax")[:size]
     written = w >= 0
     return torch.where(written, w, 0), written
+
+
+def set_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """The reference's ``arr.at[idx].set(vals, mode='drop')`` along dim 0.
+
+    A negative index counts from the end, as XLA normalises it; an index
+    still outside ``[0, n)`` is dropped; of repeated indices the last
+    wins, the order XLA applies the updates in on the CPU.  ``vals`` is a
+    scalar or one row per index.
+    """
+    n = arr.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    writer, written = last_writer(idx, torch.ones_like(idx, dtype=torch.bool),
+                                  n)
+    vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device)
+    if vals.dim():
+        vals = vals.expand(idx.shape + arr.shape[1:])[writer]
+    return torch.where(written.reshape((n,) + (1,) * (arr.dim() - 1)),
+                       vals, arr)

@@ -33,11 +33,14 @@ def _is_namedtuple(x) -> bool:
 
 def _port_classes() -> dict[str, type]:
     from repro_torch.baselines import netcache
-    from repro_torch.core import controller, orbit, pipeline, sketch, types
+    from repro_torch.core import (
+        controller, distributed, orbit, pipeline, sketch, types,
+    )
     from repro_torch.kernels.subround import ops
     from repro_torch.kvstore import client, server, simulator, workload
+    from repro_torch.serving import orbit_service
     mods = (types, pipeline, orbit, sketch, controller, ops, client, server,
-            simulator, workload, netcache)
+            simulator, workload, netcache, distributed, orbit_service)
     return {name: obj for m in mods for name, obj in vars(m).items()
             if isinstance(obj, type) and issubclass(obj, tuple)
             and hasattr(obj, "_fields")}
@@ -83,6 +86,17 @@ def from_numpy(x, device, name: str | None = None):
 def switch_state_from_numpy(sw, device):
     """Reference ``SwitchState`` (numpy leaves) -> the port's."""
     return from_numpy(sw, device)
+
+
+def ring_state_from_numpy(st, device):
+    """Reference ``RingState`` (numpy leaves, stacked ``[D, ...]`` or one
+    position's) -> the port's."""
+    return from_numpy(st, device)
+
+
+def service_state_from_numpy(st, device):
+    """Reference ``ServiceState`` (numpy leaves) -> the port's."""
+    return from_numpy(st, device)
 
 
 def workload_from_numpy(arrays, device):

@@ -114,7 +114,7 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py",
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_composed.py",
               *sorted((ROOT / "examples").glob("*_torch.py"))]
     assert len(files) > 10
     for f in files:

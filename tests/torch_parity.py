@@ -66,3 +66,37 @@ def assert_trees_equal(port, ref, label: str, skip=("rng", "draws"),
         else:
             np.testing.assert_array_equal(
                 g, w, err_msg=f"{label}: mismatch at {path}")
+
+
+def flat_tree(tree, prefix=""):
+    """{path: numpy leaf} of a port tree, with the reference's dtypes (the
+    form a reference subprocess dumps into an ``.npz``)."""
+    return dict(tree_leaves_with_path(to_numpy(tree), prefix))
+
+
+def tree_from_flat(template, flat, device, prefix=""):
+    """A port tree shaped as ``template`` whose leaves are ``flat[path]``
+    (reference numpy arrays, as :func:`flat_tree` names them), through the
+    interop dtype map."""
+    from repro_torch.interop import from_numpy
+    if _is_namedtuple(template):
+        return type(template)(*(
+            tree_from_flat(getattr(template, f), flat, device,
+                           f"{prefix}.{f}") for f in template._fields))
+    return from_numpy(flat[prefix], device, prefix.rsplit(".", 1)[-1])
+
+
+def assert_flat_equal(port, flat, label, prefix=""):
+    """``port`` (a port tree) equals the reference leaves ``flat`` stored
+    under ``prefix``, leaf for leaf and dtype for dtype; returns the count."""
+    got = flat_tree(port)
+    want = {k[len(prefix):]: v for k, v in flat.items()
+            if k.startswith(prefix + ".")}
+    assert set(got) == set(want), \
+        f"{label}: leaves differ: {set(got) ^ set(want)}"
+    for path, w in want.items():
+        g = got[path]
+        assert g.dtype == w.dtype and g.shape == w.shape, \
+            f"{label}{path}: {g.dtype}{g.shape} vs {w.dtype}{w.shape}"
+        np.testing.assert_array_equal(g, w, err_msg=f"{label}{path}")
+    return len(want)
