@@ -91,7 +91,8 @@ line; any failure exits non-zero:
 12. ``fleet_skew``: Zipf 0.9, 0.95 and 0.99 (the CDF stacked, each
    point's hot set) for OrbitCache, NetCache (each point's 10,000 hottest
    keys) and NoCache, ``run(0.03)`` each, every point equal to its serial
-   rack; NetCache and NoCache launch no kernel;
+   rack and its post-window invariants holding against its preload
+   (``analysis.invariants``); NetCache and NoCache launch no kernel;
 13. the fabric's kernel launches (``fabric_batched_vs_plain``):
    ``subround`` and ``cms`` under two vmap levels (3 points x 4 racks at
    the paper fabric rack's shapes, inputs batched at both levels or the
@@ -104,7 +105,8 @@ line; any failure exits non-zero:
    spine of 256 entries): preload, ``run(0.05, controller_period_s=
    0.01)`` graphed, 8 ``subround`` and 1 ``cms`` launches a fabric window
    and 6 ``hot_gather`` a period, no plain version; the spine's
-   conservation law; the spine controller's three ``_merge_scores``
+   conservation law; the post-window invariants of every rack and the
+   spine; the spine controller's three ``_merge_scores``
    input sets of its first period against the plain version and timed
    (``hot_gather_spine_live``); the same fabric without the servers'
    tracking at locality 1.0, 64 windows from its preload, rack i equal to
@@ -148,7 +150,21 @@ line; any failure exits non-zero:
    first), equal to ``StackedRing(1)`` leaf for leaf over 16 service
    steps.  Rings of D > 1 processes are checked with gloo on the CPU only
    (``tests/test_torch_distributed_ring.py``,
-   ``tests/test_torch_orbit_service.py``).
+   ``tests/test_torch_orbit_service.py``);
+20. ``analysis`` (``src/repro_torch/analysis/``): the lint, all six rules
+   over all six entry points on the kernel backend (0 findings: launches
+   equal to the dispatcher calls and to the profiler's kernels, no copy
+   in a replayed chunk, no recapture over a sweep), and every rule's
+   seeded violation firing and its clean twin passing on the card; the
+   main path's workload through the paper rack graphed: one replayed
+   window under ``torch.profiler`` (4 ``subround_kernel`` equal to
+   ``LAUNCHES``, 0 HtoD and 0 DtoH copies), then ``test_invariants.py``'s
+   staircase (4 chunks of 4 windows at 0.3-2.5x the offered load and
+   write ratios 0-0.4): the post-window invariants against the chunk
+   before, the carry in the chunk's buffers, no memory growth after chunk
+   2, no new capture; the invariants over 3 control-plane periods of 10
+   windows with two ``hot_in_swap(128)``, and over 3 NetCache chunks (the
+   10,000 hottest keys); with the checks of phases 12 and 14.
 
 Every phase line carries ``t_s``, the seconds since the script started.
 The line before the last two is the kernels' JSON record; the last line is
@@ -1198,7 +1214,7 @@ def run_main_path(dev):
                        **graph_stats(sim)),
           eager=rates(EAGER_WINDOWS, wall_e, busy_eager))
     no_sync("orbitcache", sim)
-    return launches, live
+    return launches, live, wl
 
 
 def control_plane_rack(dev):
@@ -2097,9 +2113,10 @@ def run_fleet_control_plane(dev):
     return launches
 
 
-def run_fleet_skew(dev):
+def run_fleet_skew(dev, held=None):
     """``fleet_skew`` (module docstring): returns the subround launches of
-    its OrbitCache run."""
+    its OrbitCache run.  ``held`` (a dict) gets the points whose
+    invariants held."""
     from repro_torch import kernels as kn
     from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
     from repro_torch.interop import to_numpy
@@ -2120,12 +2137,17 @@ def run_fleet_skew(dev):
         if fleet._wl_axes != (0, None, None):
             raise AssertionError(f"skew fleet axes {fleet._wl_axes}")
         fleet.preload(keys)
+        before = clone_tree(fleet.carry)
         with counting_plain_versions() as plain_calls:
             kn.reset_launch_counts()
             cap0 = fleet.chunk.capture_seconds
             res, wall = timed_run(lambda: fleet.run(SKEW_S))
             capture_s = fleet.chunk.capture_seconds - cap0
             launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
+        n_held = check_rack(rack, fleet.carry, before, f"skew {scheme}")
+        if held is not None:
+            held[f"fleet_skew_{scheme}_points"] = n_held
+        del before
         n_win = len(res[0].traces["tx"])
         want = dict(subround=rack.subrounds * n_win * (scheme == "orbitcache"),
                     cms=0, hot_gather=0, orbit_match=0)
@@ -2167,7 +2189,8 @@ def run_fleet_skew(dev):
         phase("fleet_skew", scheme=scheme, points=p, windows=n_win,
               launches=launches,
               points_equal_serial=p, equal_traces=n_traces,
-              equal_leaves=n_leaves, per_point=pts,
+              equal_leaves=n_leaves, invariants_held_points=n_held,
+              per_point=pts,
               installed=getattr(fleet, "_installed", None),
               **fleet_rates(n_win, wall, capture_s, p, serial_wps, busy),
               graph=graph_stats(fleet))
@@ -2175,9 +2198,10 @@ def run_fleet_skew(dev):
     return sub_launches
 
 
-def run_fleet(dev):
+def run_fleet(dev, held=None):
     """The batched kernels against their plain versions, then the three
-    fleet cells: ``(kernel records, launches by kernel and path)``."""
+    fleet cells: ``(kernel records, launches by kernel and path)``
+    (``held``: see :func:`run_fleet_skew`)."""
     n_sr, err_sr, t_sr = check_subround_batched(dev)
     phase("subround_batched_vs_plain", cases=n_sr, equal=True,
           max_abs_err=err_sr, **t_sr)
@@ -2189,7 +2213,7 @@ def run_fleet(dev):
           max_abs_err=err_hg, calls=t_hg)
     stair = run_fleet_staircase(dev)
     cp = run_fleet_control_plane(dev)
-    skew = run_fleet_skew(dev)
+    skew = run_fleet_skew(dev, held)
     by_path = dict(subround=dict(fleet_staircase=stair,
                                  fleet_control_plane=cp["subround"],
                                  fleet_skew=skew),
@@ -2480,9 +2504,10 @@ def spine_merge_inputs(sim, period_w):
     return recorded
 
 
-def run_fabric_paper(dev):
+def run_fabric_paper(dev, held=None):
     """``fabric_paper`` (module docstring, phase 14): returns the launches
-    of its run."""
+    of its run.  ``held`` (a dict) gets the racks whose invariants
+    held."""
     from repro_torch import kernels as kn
     from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
     from repro_torch.interop import to_numpy
@@ -2525,6 +2550,15 @@ def run_fabric_paper(dev):
     if launches != want or any(calls.values()):
         raise AssertionError(f"fabric_paper launched {launches} and ran "
                              f"plain versions {calls}; want {want}")
+    # the post-window invariants of every rack and of the spine (periods
+    # reset the switches' popularity: the servers against the preload)
+    from repro_torch.analysis.invariants import check_switch_invariants
+    n_held = check_rack(rack, sim.carry.racks, start.racks, "fabric racks",
+                        period=True)
+    check_switch_invariants(sim.carry.spine, None, "fabric spine")
+    if held is not None:
+        held["fabric_paper_racks"] = n_held
+        held["fabric_paper_spines"] = 1
     # the conservation law of an OrbitCache spine, per window, and every
     # spine serve accounted at the spine tier
     remote, served, fwd, in_drops = (sp[k].astype(np.int64) for k in (
@@ -2647,6 +2681,7 @@ def run_fabric_paper(dev):
           eager_kernels_per_window={k: v / prof_w
                                     for k, v in by_kernel.items()},
           results=results, conservation=True,
+          invariants_held=dict(racks=n_held, spine=1),
           graphed=dict(rates(n_win, wall - capture_s, busy_g),
                        wall_seconds=round(wall, 3),
                        run_capture_seconds=capture_s, **graph_stats(sim)),
@@ -3169,6 +3204,176 @@ def run_ring_process(dev):
                "only; one card here")
 
 
+# --------------------------------------------------------------------------
+# the structural checks (repro_torch/analysis)
+# --------------------------------------------------------------------------
+INV_CHUNKS, INV_CHUNK_W = 4, 4      # tests/test_invariants.py's staircase
+INV_PERIODS, INV_PERIOD_W = 3, 10   # the control-plane run's periods
+INV_SEED = 20
+
+
+def check_rack(cfg, carry, prev, label, period=False):
+    """The post-window invariants of a rack carry (leading point or rack
+    axes allowed) against ``prev``, an earlier snapshot or clone: the
+    scheme's switch and the servers.  With ``period`` the switch is held
+    without ``prev`` (a period resets its popularity counters).  Returns
+    the number of racks checked."""
+    from repro_torch.analysis import invariants as inv
+
+    before = lambda x: None if prev is None else getattr(prev, x)
+    if cfg.scheme == "orbitcache":
+        inv.check_switch_invariants(
+            carry.policy, None if period else before("policy"), label)
+    elif cfg.scheme == "netcache":
+        inv.check_netcache_invariants(carry.policy, before("policy"), label)
+    inv.check_server_invariants(carry.servers, cfg, before("servers"),
+                                label)
+    return int(np.prod(carry.servers.qlen.shape[:-1]))
+
+
+def run_analysis(dev, wl, held):
+    """``analysis`` (module docstring, phase 20) on the main path's
+    workload ``wl``; ``held`` has the invariant checks of the fleet and
+    fabric phases.  Returns the phase's launches by kernel."""
+    from repro_torch import kernels as kn
+    from repro_torch.analysis.rules import RULES
+
+    t0 = time.perf_counter()
+    kn.reset_launch_counts()
+    calls = analysis_lint(dev)
+    lint_s = time.perf_counter() - t0
+    paper = analysis_paper_rack(dev, wl)
+    torch.cuda.synchronize()
+    launches = dict(kn.LAUNCHES)
+    phase("analysis", seconds=round(time.perf_counter() - t0, 3),
+          lint=dict(rules=len(RULES), entries=len(calls), findings=0,
+                    fixtures_fired=len(RULES), seconds=round(lint_s, 3),
+                    calls_per_run=calls),
+          **paper, invariants_elsewhere=held, launches=launches)
+    return launches
+
+
+def analysis_lint(dev):
+    """All six rules over all six entries on the kernel backend, and every
+    rule's seeded violation and clean twin on the card; any finding
+    fails.  Returns each entry's expected calls a run."""
+    from repro_torch.analysis import fixtures as fx
+    from repro_torch.analysis.entry_points import build_entry_points
+    from repro_torch.analysis.lint import run_lint
+    from repro_torch.analysis.rules import RULES
+
+    entries = build_entry_points(device=dev)
+    findings = run_lint(entries)
+    if findings:
+        raise AssertionError("lint on the card:\n"
+                             + "\n".join(f.format() for f in findings))
+    for rule, (bad, good, op, fn) in fx.cases(dev).items():
+        fired, clean = RULES[rule](bad), RULES[rule](good)
+        if not fired or clean or any(
+                f.op != op or not f.site.startswith(f"{fn} @ ")
+                for f in fired):
+            raise AssertionError(
+                f"{rule} fixtures on the card: "
+                f"{[f.format() for f in fired]} / "
+                f"{[f.format() for f in clean]}")
+    return {e.name: e.calls for e in entries}
+
+
+def analysis_paper_rack(dev, wl):
+    """The paper rack on the main path's workload ``wl``, graphed: one
+    replayed window under the profiler, the staircase (carry in place, no
+    recapture, the invariants), then the invariants through period
+    updates and on NetCache.  Returns the phase line's fields."""
+    from repro_torch.analysis import invariants as inv
+    from repro_torch.analysis.profile import KERNEL_SYMBOLS, kernel_summary
+    from repro_torch.analysis.rules import leaves
+    from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
+    from repro_torch.kvstore.simulator import RackSimulator
+
+    sim = RackSimulator(RACK, wl)
+    sim.preload(wl.hottest_keys(RACK.cache_entries))
+    ch = sim.chunk
+
+    def window():
+        sim.carry, _ = ch(wl.arrays, sim.carry, 1)
+
+    window()
+    summ = kernel_summary(window)
+    per_window = summ.launches
+    seen = {k: summ.kernels[s] for k, s in KERNEL_SYMBOLS.items()}
+    want = dict(subround=RACK.subrounds, cms=0, hot_gather=0, orbit_match=0)
+    if per_window != want or seen != per_window or summ.htod or summ.dtoh:
+        raise AssertionError(f"replayed paper window: LAUNCHES "
+                             f"{per_window}, profiler {seen}, HtoD "
+                             f"{summ.htod}, DtoH {summ.dtoh}; want {want}")
+    rng = np.random.default_rng(INV_SEED)
+    captures, ptrs, mem, loads = ch.captures, None, [], []
+    prev, n_checks = None, 0
+    for i in range(INV_CHUNKS):
+        loads.append(float(rng.uniform(0.3, 2.5)) * WORKLOAD.offered_rps)
+        sim.set_offered(loads[-1])
+        sim.set_write_ratio(float(rng.uniform(0.0, 0.4)))
+        sim.run_windows(INV_CHUNK_W)
+        check_rack(RACK, sim.carry, prev, f"paper staircase chunk {i}")
+        n_checks += 1
+        prev = inv.snapshot(sim.carry)
+        now = {path: t.data_ptr() for path, t in leaves(sim.carry)}
+        if ptrs is not None and now != ptrs:
+            raise AssertionError(f"paper staircase chunk {i}: the carry "
+                                 f"left the chunk's buffers")
+        ptrs = now
+        mem.append((torch.cuda.memory_reserved(dev),
+                    sum(ch.graph_bytes.values())))
+    if ch.captures != captures:
+        raise AssertionError(f"sweeping the offered load captured "
+                             f"{ch.captures - captures} new graph(s)")
+    if mem[-1][0] > mem[1][0] or mem[-1][1] > mem[1][1]:
+        raise AssertionError(f"memory grew after chunk 2: {mem}")
+    del sim, prev
+
+    # 3. the invariants through period updates (with Fig. 18's hot-set
+    # swaps: evictions and CacheIdx inheritance), then NetCache
+    cp_rack = dataclasses.replace(RACK, track_popularity=True)
+    cp = RackSimulator(cp_rack, wl)
+    cp.preload(wl.hottest_keys(cp_rack.cache_entries))
+    prev, churn = inv.snapshot(cp.carry), dict(inserted=0, evicted=0)
+    for p in range(INV_PERIODS):
+        if p:
+            wl.hot_in_swap(CP_SWAP)
+        cp.run_periods(1, INV_PERIOD_W)
+        check_rack(cp_rack, cp.carry, prev, f"control plane period {p}",
+                   period=True)
+        prev = inv.snapshot(cp.carry)
+        churn["inserted"] += int(cp._last_update.n_insert.sum())
+        churn["evicted"] += int(cp._last_update.n_evict.sum())
+    if not churn["inserted"]:
+        raise AssertionError("the control-plane run updated no entry")
+    del cp
+    nc_rack = dataclasses.replace(RACK, scheme="netcache")
+    nc = RackSimulator(nc_rack, wl)
+    nc.preload(wl.hottest_keys(nc_rack.netcache_entries))
+    prev = inv.snapshot(nc.carry)
+    for i in range(INV_CHUNKS - 1):
+        nc.set_offered(float(rng.uniform(0.3, 2.0)) * WORKLOAD.offered_rps)
+        nc.run_windows(INV_CHUNK_W)
+        check_rack(nc_rack, nc.carry, prev, f"netcache chunk {i}")
+        prev = inv.snapshot(nc.carry)
+    nc_hits = int(nc.carry.policy.hits)
+    return dict(
+        paper_window=dict(launches=per_window, profiler_kernels=seen,
+                          memcpy_htod=summ.htod, memcpy_dtoh=summ.dtoh,
+                          device_kernels=summ.device_kernels),
+        carry_in_place=dict(chunks=INV_CHUNKS, leaves=len(ptrs),
+                            reserved_mib=[round(m / 2**20, 1)
+                                          for m, _ in mem],
+                            graph_pool_mib=round(mem[-1][1] / 2**20, 1)),
+        recapture=dict(captures=ch.captures - captures, offered_rps=loads),
+        invariants=dict(staircase_chunks=n_checks,
+                        control_plane_periods=INV_PERIODS,
+                        control_plane_churn=churn,
+                        netcache_chunks=INV_CHUNKS - 1,
+                        netcache_hits=nc_hits))
+
 def time_against(dev, other_dir):
     """``--against DIR``: time the four kernels built from
     ``DIR/{subround,cms,hot_gather,orbit_match}.cu`` (other versions with
@@ -3326,28 +3531,31 @@ def main():
           library_f32_device_us=hg_calls[1]["library_f32_two_calls_device_us"],
           calls=hg_calls)
 
-    main_launches, live = run_main_path(dev)
+    main_launches, live, wl = run_main_path(dev)
     om = run_orbit_match(dev, live)
     cp_launches = run_control_plane(dev)
     run_schemes(dev)
-    batched, fleet_launches = run_fleet(dev)
+    held = {}
+    batched, fleet_launches = run_fleet(dev, held)
     n_fab, fab_err, fab_times = check_fabric_kernels(dev)
     phase("fabric_batched_vs_plain", cases=n_fab, equal=True,
           max_abs_err=fab_err, nested=dict(zip(("points", "racks"),
                                                 FABRIC_NESTED)),
           **fab_times)
-    fabric_launches = dict(fabric_paper=run_fabric_paper(dev),
+    fabric_launches = dict(fabric_paper=run_fabric_paper(dev, held),
                            fabric_locality=run_fabric_locality(dev))
     reg_launches = run_composed_vs_fused(dev)
     run_ring_stacked(dev)
     run_orbit_service(dev)
     run_ring_process(dev)
+    analysis_launches = run_analysis(dev, wl, held)
 
     def launches(k):
         by_path = dict(main_path=(k == "subround") * main_launches,
                        control_plane=cp_launches[k], **fleet_launches[k],
                        **{c: v[k] for c, v in fabric_launches.items()},
-                       switch_regression=reg_launches[k])
+                       switch_regression=reg_launches[k],
+                       analysis=analysis_launches[k])
         err, us = batched[k]
         return dict(launches=sum(by_path.values()), launches_by_path=by_path,
                     batched_max_abs_err=max(err, fab_err),
@@ -3385,12 +3593,14 @@ def main():
         dict(name="orbit_match", route="cuda",
              source="src/repro_torch/kernels/orbit_match/kernel.cu",
              replaces="src/repro/kernels/orbit_match/kernel.py:25",
-             launches=om["launches"],
+             launches=om["launches"] + analysis_launches["orbit_match"],
              launches_by_path=dict(orbit_match_entry_point=om["launches"],
                                    fleet_staircase=0, fleet_control_plane=0,
                                    fleet_skew=0, fabric_paper=0,
                                    fabric_locality=0,
                                    switch_regression=reg_launches[
+                                       "orbit_match"],
+                                   analysis=analysis_launches[
                                        "orbit_match"]),
              max_abs_err=om["max_abs_err"], ms=om["ms"],
              **device_times(om),

@@ -15,7 +15,11 @@ tensors).  Asking for ``cuda`` with CPU tensors is an error.
 
 ``LAUNCHES`` counts kernel launches by kernel name: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+main path went through the kernels.  ``CALLS`` counts the calls of the
+four dispatchers below, on either backend (a batched call once, as it
+launches once): on ``cuda`` each call launches once, so the two agree,
+and on ``ref`` ``LAUNCHES`` stays 0 while ``CALLS`` still counts the
+kernel calls a path makes, the number the card's launches must equal.
 
 The fleet
 ---------
@@ -57,11 +61,14 @@ _forced: str | None = None
 
 LAUNCHES: dict[str, int] = {"subround": 0, "cms": 0, "hot_gather": 0,
                             "orbit_match": 0}
+CALLS: dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero ``LAUNCHES`` and ``CALLS``."""
+    for counts in (LAUNCHES, CALLS):
+        for k in counts:
+            counts[k] = 0
 
 
 def set_kernel_backend(name: str | None) -> None:
@@ -103,6 +110,7 @@ def orbit_match(hkey, table_hkeys, occupied, valid, pop_mask=None,
     from .orbit_match import ops
     from .orbit_match import ref as om_ref
 
+    CALLS["orbit_match"] += 1
     if kernel_backend(hkey.device) == "ref":
         return om_ref.orbit_match_ref(hkey, table_hkeys, occupied, valid,
                                       pop_mask)
@@ -133,6 +141,7 @@ def subround(
             rt_client, rt_seq, rt_port, rt_ts, rt_acked, rt_kidx, qlen,
             front, rear, ob_live, ob_kidx, ob_version, ob_vlen, ob_frags,
             budget)
+    CALLS["subround"] += 1
     if _batched(*args):
         budget = torch.as_tensor(budget, device=hkey.device)
         return SubroundOuts(*_subround_op(list(args[:30]) + [budget],
@@ -156,6 +165,7 @@ def cms_update_query(hkey, mask, counts, block_b: int = 256):
     from .cms import ops
     from .cms import ref as cms_ref
 
+    CALLS["cms"] += 1
     if _batched(hkey, mask, counts):
         return tuple(_cms_op(hkey, mask, counts, block_b))
     if kernel_backend(hkey.device) == "ref":
@@ -172,6 +182,7 @@ def hot_gather(ids, hot_ids, rows):
     from .hot_gather import ops
     from .hot_gather import ref as hg_ref
 
+    CALLS["hot_gather"] += 1
     if _batched(ids, hot_ids, rows):
         return tuple(_hot_gather_op(ids, hot_ids, rows))
     if kernel_backend(ids.device) == "ref":

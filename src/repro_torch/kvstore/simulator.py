@@ -517,8 +517,9 @@ class CompiledChunk:
       its key changes: the kernel backend, the draw source, the controller
       config or a larger chunk than the buffers hold.  A capture that
       fails raises.
-    * ``repro_torch.kernels.LAUNCHES`` counts the kernels a graph captured
-      once per replay.
+    * ``repro_torch.kernels.LAUNCHES`` (and ``CALLS``) count the kernels a
+      graph captured (and the dispatcher calls that launched them) once
+      per replay.
     """
 
     def __init__(self, cfg: RackConfig, server_cfg: ServerConfig,
@@ -639,17 +640,18 @@ class CompiledChunk:
         _, graph, counts = got
         for _ in range(n):
             graph.replay()
-        for k, v in counts.items():
-            kn.LAUNCHES[k] += v * n
+        for total, per_replay in zip((kn.LAUNCHES, kn.CALLS), counts):
+            for k, v in per_replay.items():
+                total[k] += v * n
 
     def _capture(self, name: str, body):
         """Warm up ``body`` once and undo it, then capture it: ``(graph,
-        kernel launches per replay)``."""
+        (kernel launches, dispatcher calls) per replay)``."""
         t0 = time.perf_counter()
         draws = self.carry.draws
         saved = (_clone_tree(self.carry), draws.get_state(),
                  _clone_tree(self.active), self.w_idx.clone(),
-                 self.p_idx.clone(), dict(kn.LAUNCHES))
+                 self.p_idx.clone(), dict(kn.LAUNCHES), dict(kn.CALLS))
         body()
         _copy_tree_((self.carry, self.active, self.w_idx, self.p_idx),
                     (saved[0], *saved[2:5]))
@@ -658,12 +660,14 @@ class CompiledChunk:
         if name == "window":
             for gen in draws.generators():
                 graph.register_generator_state(gen)
-        before = dict(kn.LAUNCHES)
+        before = (dict(kn.LAUNCHES), dict(kn.CALLS))
         with torch.cuda.graph(graph):
             reserved = torch.cuda.memory_reserved(self.device)
             body()
-        counts = {k: kn.LAUNCHES[k] - before[k] for k in before}
+        counts = tuple({k: now[k] - b[k] for k in b}
+                       for now, b in zip((kn.LAUNCHES, kn.CALLS), before))
         kn.LAUNCHES.update(saved[5])
+        kn.CALLS.update(saved[6])
         self.graph_bytes[name] = (torch.cuda.memory_reserved(self.device)
                                   - reserved)
         self.capture_seconds += time.perf_counter() - t0
