@@ -164,7 +164,18 @@ line; any failure exits non-zero:
    before, the carry in the chunk's buffers, no memory growth after chunk
    2, no new capture; the invariants over 3 control-plane periods of 10
    windows with two ``hot_in_swap(128)``, and over 3 NetCache chunks (the
-   10,000 hottest keys); with the checks of phases 12 and 14.
+   10,000 hottest keys); with the checks of phases 12 and 14;
+21. ``lm_serve``: qwen2-0.5b at full width (24 layers, d 896, vocab
+   151,936, bf16, random weights) through ``ServeEngine.generate``, batch
+   4, prompt 16, 32 new tokens: prefill ms, decode ms per step, tokens/s,
+   peak memory, the device's busy share over 8 profiled decode steps and
+   the decode step's bound (its weight and cache bytes over HBM);
+22. ``lm_decode_vs_forward``: qwen2-0.5b at full width in float32, the
+   12th stepwise decode logits against the full forward's within 2e-2;
+23. ``lm_archs``: every arch at ``reduced()`` size in float32, forward
+   and 4 decode steps on the card against the CPU within 1e-3, and greedy
+   tokens of the reduced qwen2-0.5b equal.  The LM phases launch none of
+   the four kernels (``kernels.LAUNCHES`` unchanged).
 
 Every phase line carries ``t_s``, the seconds since the script started.
 The line before the last two is the kernels' JSON record; the last line is
@@ -3374,6 +3385,290 @@ def analysis_paper_rack(dev, wl):
                         netcache_chunks=INV_CHUNKS - 1,
                         netcache_hits=nc_hits))
 
+# ---------------------------------------------------------------------------
+# language-model serving (src/repro_torch/{configs,models,serving,launch})
+# ---------------------------------------------------------------------------
+LM_ARCH = "qwen2-0.5b"
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 16, 32     # launch/serve.py's defaults
+LM_CHECK_TOKENS = 12          # tests/test_archs_smoke.py's decode depth
+LM_DECODE_TOL = 2e-2          # tests/test_archs_smoke.py:104
+LM_CARD_TOL = 1e-3            # float32 card against the CPU: cuBLAS and the
+#                               CPU order the matmul sums differently
+LM_ARCH_STEPS = 4
+# decode steps profiled for the busy share: each is ~2,250 device kernels,
+# and the profiler's processing grows with the events
+LM_PROFILE_STEPS = 8
+
+
+def lm_busy_share(run):
+    """``run()`` under ``torch.profiler`` (device activity only) after the
+    lead-in spin kernels of ``analysis/profile.py`` (seen, they prove that
+    the session recorded the run's kernels): ``(device ms, wall ms,
+    device kernels)`` of the run, the device time summed over its kernels
+    and copies."""
+    from repro_torch.analysis.profile import LEAD_IN
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None)
+              == torch.autograd.DeviceType.CUDA]
+    lead = [e for e in events if "spin_kernel" in e.key]
+    if not lead:
+        raise AssertionError("the profiler dropped every lead-in kernel: "
+                             "the decode steps' records may be incomplete")
+    run_events = [e for e in events if "spin_kernel" not in e.key]
+    return (device_us(run_events) / 1e3, wall * 1e3,
+            sum(e.count for e in run_events))
+
+
+def lm_inputs(cfg, seed=0, steps=LM_ARCH_STEPS, b=2, s=12):
+    """(forward batch, decode batches) of ``cfg`` made from ``seed``, as
+    CPU tensors (``tests/torch_lm_parity.py``'s shapes)."""
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy
+    if cfg.num_codebooks:
+        codes = rng.integers(0, cfg.vocab_size, (b, steps, cfg.num_codebooks))
+        return ({"frame_embeds": t(rng.standard_normal(
+                    (b, s, cfg.d_model)).astype(np.float32))},
+                [{"codes": t(codes[:, i: i + 1])} for i in range(steps)])
+    toks = rng.integers(0, cfg.vocab_size, (b, s))
+    batch = {"tokens": t(toks)}
+    dec = [{"tokens": t(toks[:, i: i + 1])} for i in range(steps)]
+    if cfg.frontend == "vision_stub":
+        tv = cfg.vision_tokens
+        batch["vision_embeds"] = t(rng.standard_normal(
+            (b, tv, cfg.d_model)).astype(np.float32))
+        batch["mrope_pos"] = t(np.stack([np.broadcast_to(
+            np.arange(s + tv, dtype=np.int32) // (k + 1), (b, s + tv))
+            for k in range(3)]))
+        for i, d in enumerate(dec):
+            d["mrope_pos"] = torch.full((3, b, 1), tv + i, dtype=torch.int32)
+    return batch, dec
+
+
+def lm_err(got, want, what, tol):
+    """Max |got - want| over two trees of tensors; fails above
+    rtol = atol = ``tol``."""
+    from repro_torch.interop import lm_state_to_reference
+
+    if isinstance(got, dict):
+        got, want = lm_state_to_reference(got), lm_state_to_reference(want)
+    gl = [np.asarray(x, np.float64) for x in _leaves(got)]
+    wl = [np.asarray(x, np.float64) for x in _leaves(want)]
+    if len(gl) != len(wl):
+        raise AssertionError(f"{what}: {len(gl)} leaves against {len(wl)}")
+    err = 0.0
+    for g, w in zip(gl, wl):
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError(f"{what}: shape {g.shape} against {w.shape}"
+                                 f" or a value not finite")
+        if not np.allclose(g, w, rtol=tol, atol=tol):
+            raise AssertionError(f"{what}: differs by "
+                                 f"{np.abs(g - w).max()} > {tol}")
+        err = max(err, float(np.abs(g - w).max()) if g.size else 0.0)
+    return err
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        return [v for k in sorted(x) for v in _leaves(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [v for item in x for v in _leaves(item)]
+    if isinstance(x, torch.Tensor):
+        return [x.detach().float().cpu().numpy()]
+    return [x]
+
+
+def run_lm_serve(dev):
+    """``lm_serve``: qwen2-0.5b at full width (24 layers, d 896, vocab
+    151,936, bf16, random weights from seed 0) through
+    ``ServeEngine.generate``: batch 4, prompt 16, 32 new tokens, greedy.
+    Prefill ms, decode ms per step, tokens/s, peak memory, the device's
+    busy share over 8 profiled decode steps, and the decode step's
+    bound: the bytes it must read (every weight once, the KV cache) over
+    HBM bandwidth."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models import model as model_mod
+    from repro_torch.serving.engine import ServeConfig, ServeEngine
+
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    scfg = ServeConfig(max_batch=LM_BATCH,
+                       max_seq=LM_PROMPT + LM_NEW + 8)
+    eng = ServeEngine(cfg, model, scfg, device=dev)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        2, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(dev)
+    eng.generate(prompts, LM_NEW)          # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    state, logits = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    decode_ms = (gen_s - prefill_s) * 1e3 / LM_NEW
+
+    if out.shape != (LM_BATCH, LM_NEW) or out.dtype != torch.int32:
+        raise AssertionError(f"lm_serve: tokens {out.dtype}{tuple(out.shape)}")
+    if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError("lm_serve: a token outside the vocabulary")
+    if logits.shape != (LM_BATCH, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("lm_serve: prefill logits not finite")
+
+    @torch.inference_mode()
+    def decode_steps():
+        st, tok = state, nxt
+        for _ in range(LM_PROFILE_STEPS):
+            lg, st = model_mod.decode_step(model, st,
+                                           {"tokens": tok[:, None]}, cfg)
+            tok = eng._sample(lg, None)
+
+    state, logits = eng.prefill(prompts)
+    nxt = eng._sample(logits, None)
+    t0 = time.perf_counter()
+    dev_ms, wall_ms, n_kernels = lm_busy_share(decode_steps)
+    profile_s = time.perf_counter() - t0
+    t = scfg.max_seq
+    cache_bytes = (2 * cfg.num_layers * LM_BATCH * t * cfg.num_kv_heads
+                   * cfg.resolved_head_dim * 2)
+    step_bytes = weight_bytes + cache_bytes
+    phase("lm_serve", arch=cfg.name, layers=cfg.num_layers,
+          d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+          params=n_params, weight_bytes=weight_bytes, batch=LM_BATCH,
+          prompt=LM_PROMPT, new_tokens=LM_NEW, init_s=init_s,
+          prefill_ms=prefill_s * 1e3, generate_s=gen_s,
+          decode_ms_per_step=decode_ms,
+          tokens_per_s=LM_BATCH * LM_NEW / gen_s,
+          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+          profiled_decode_steps=LM_PROFILE_STEPS,
+          device_ms_per_step=dev_ms / LM_PROFILE_STEPS,
+          profiled_wall_ms_per_step=wall_ms / LM_PROFILE_STEPS,
+          device_busy_share=dev_ms / wall_ms,
+          device_kernels_per_step=n_kernels / LM_PROFILE_STEPS,
+          profile_s=profile_s,
+          step_bound_bytes=step_bytes,
+          step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+          bound_by="bytes", sample=out[0, :8].tolist())
+    del model, eng, state
+    torch.cuda.empty_cache()
+
+
+@torch.inference_mode()
+def run_lm_decode_vs_forward(dev):
+    """``lm_decode_vs_forward``: qwen2-0.5b at full width in float32
+    (seed 1): the last of 12 stepwise decode logits equal the full
+    forward's last within the reference's own bound (2e-2,
+    ``tests/test_archs_smoke.py:104``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), dtype="float32")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=1)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, LM_CHECK_TOKENS))).to(dev)
+    lg_full, _ = model({"tokens": toks})
+    st = model.init_decode_state(2, 32, dtype=torch.float32)
+    for i in range(LM_CHECK_TOKENS):
+        lg_step, st = model.decode_step(st, {"tokens": toks[:, i: i + 1]})
+    err = lm_err(lg_step[:, 0], lg_full[:, -1], "lm_decode_vs_forward",
+                 LM_DECODE_TOL)
+    phase("lm_decode_vs_forward", arch=cfg.name, dtype=cfg.dtype,
+          tokens=LM_CHECK_TOKENS, max_abs_err=err,
+          tolerance=dict(rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL),
+          tf32=torch.backends.cuda.matmul.allow_tf32,
+          seconds=time.perf_counter() - t0)
+    del model, st
+    torch.cuda.empty_cache()
+
+
+@torch.inference_mode()
+def run_lm_archs(dev):
+    """``lm_archs``: every arch of ``configs.ARCHS`` at ``reduced()`` size
+    in float32 (weights from seed 0 on the CPU, copied to the card):
+    the forward's logits and ``aux`` and 4 decode steps (each step's
+    logits, the final state) on the card against the same on the CPU,
+    within rtol = atol = 1e-3; then greedy ``ServeEngine.generate``
+    tokens of the reduced qwen2-0.5b equal on both."""
+    import copy
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    errs = {}
+    for name in sorted(ARCHS):
+        cfg = dataclasses.replace(reduced(ARCHS[name]), dtype="float32")
+        cpu = build_model(cfg, device="cpu", seed=0)
+        card = copy.deepcopy(cpu).to(dev)
+        batch, steps = lm_inputs(cfg)
+        want = cpu(batch)
+        got = card({k: v.to(dev) for k, v in batch.items()})
+        e = lm_err(list(got), list(want), f"lm_archs {name} forward",
+                   LM_CARD_TOL)
+        st_c, st_g = cpu.init_decode_state(2, 8), card.init_decode_state(2, 8)
+        for i, d in enumerate(steps):
+            lw, st_c = cpu.decode_step(st_c, d)
+            lg, st_g = card.decode_step(
+                st_g, {k: v.to(dev) for k, v in d.items()})
+            e = max(e, lm_err(lg, lw, f"lm_archs {name} decode {i}",
+                              LM_CARD_TOL))
+        e = max(e, lm_err(st_g, st_c, f"lm_archs {name} state",
+                          LM_CARD_TOL))
+        errs[name] = e
+    cfg = dataclasses.replace(reduced(ARCHS[LM_ARCH]), dtype="float32")
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = copy.deepcopy(cpu).to(dev)
+    p = torch.from_numpy(np.random.default_rng(7).integers(
+        2, cfg.vocab_size, (3, 6)))
+    scfg = ServeConfig(max_batch=3, max_seq=24)
+    want = ServeEngine(cfg, cpu, scfg, device="cpu").generate(p, 8)
+    got = ServeEngine(cfg, card, scfg, device=dev).generate(p, 8)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("lm_archs: greedy tokens differ on the card")
+    phase("lm_archs", archs=len(errs), dtype="float32",
+          decode_steps=LM_ARCH_STEPS, max_abs_err=errs,
+          tolerance=dict(rtol=LM_CARD_TOL, atol=LM_CARD_TOL),
+          greedy_tokens_equal=True, seconds=time.perf_counter() - t0)
+
+
+def run_lm(dev):
+    """The three language-model phases; they launch none of the four
+    kernels, so ``kernels.LAUNCHES`` must be unchanged by them."""
+    from repro_torch import kernels as kn
+
+    before = dict(kn.LAUNCHES)
+    run_lm_serve(dev)
+    run_lm_decode_vs_forward(dev)
+    run_lm_archs(dev)
+    if dict(kn.LAUNCHES) != before:
+        raise AssertionError(f"the LM phases launched a kernel: {before} -> "
+                             f"{dict(kn.LAUNCHES)}")
+
+
 def time_against(dev, other_dir):
     """``--against DIR``: time the four kernels built from
     ``DIR/{subround,cms,hot_gather,orbit_match}.cu`` (other versions with
@@ -3549,6 +3844,7 @@ def main():
     run_orbit_service(dev)
     run_ring_process(dev)
     analysis_launches = run_analysis(dev, wl, held)
+    run_lm(dev)
 
     def launches(k):
         by_path = dict(main_path=(k == "subround") * main_launches,

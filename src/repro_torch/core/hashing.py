@@ -56,6 +56,19 @@ def _splitmix32_np(x: np.ndarray) -> np.ndarray:
     return x
 
 
+def hash128_bytes_np(key: bytes | np.ndarray) -> np.ndarray:
+    """Hash variable-length key bytes -> uint32[4] (128 bits): the FNV
+    lanes over every byte, then the SplitMix32 finalizer."""
+    data = (np.frombuffer(bytes(key), dtype=np.uint8)
+            if isinstance(key, (bytes, bytearray))
+            else np.asarray(key, np.uint8))
+    lanes = np.asarray(_LANE_BASIS, np.uint32)
+    for b in data:
+        lanes = ((lanes ^ np.uint32(b)) * np.uint32(_FNV_PRIME)
+                 ).astype(np.uint32)
+    return _splitmix32_np(lanes)
+
+
 def hash128_u32(kidx: torch.Tensor) -> torch.Tensor:
     """int[...] key identities -> int32[..., 4] hash words (uint32 bits)."""
     k = to_u32(kidx)
@@ -94,3 +107,9 @@ def server_of_key(kidx: torch.Tensor, num_servers: int) -> torch.Tensor:
     """Hash-partition owner of a key: int32[...]."""
     h = _splitmix32(to_u32(kidx) ^ 0xCAFE01)
     return (h % num_servers).to(torch.int32)
+
+
+def server_of_key_np(kidx: np.ndarray, num_servers: int) -> np.ndarray:
+    """Numpy twin of :func:`server_of_key`: int32[...]."""
+    x = np.asarray(kidx).astype(np.uint32) ^ np.uint32(0xCAFE01)
+    return (_splitmix32_np(x) % np.uint32(num_servers)).astype(np.int32)

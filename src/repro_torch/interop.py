@@ -17,6 +17,13 @@ NamedTuples map by class name and field name, so a reference tree becomes
 the port's tree of the same shape; a plain tuple (NoCache's empty policy
 ``()``) maps item by item.  The reference ``SimCarry.rng`` has no
 counterpart: the port carries a draw source (``SimCarry.draws``) instead.
+
+A language model's parameters and decode state cross with
+:func:`lm_params_from_reference`, :func:`lm_state_from_reference` and
+:func:`lm_state_to_reference`: the reference stacks layers on leading
+axes, the port keeps one module (one state entry) per layer.  bfloat16
+leaves arrive as ``ml_dtypes`` arrays and leave the port as float32 numpy
+(exact; numpy has no bfloat16 of its own).
 """
 from __future__ import annotations
 
@@ -38,9 +45,11 @@ def _port_classes() -> dict[str, type]:
     )
     from repro_torch.kernels.subround import ops
     from repro_torch.kvstore import client, server, simulator, workload
+    from repro_torch.models import embedding, moe, ssm, xlstm
     from repro_torch.serving import orbit_service
     mods = (types, pipeline, orbit, sketch, controller, ops, client, server,
-            simulator, workload, netcache, distributed, orbit_service)
+            simulator, workload, netcache, distributed, orbit_service,
+            embedding, moe, ssm, xlstm)
     return {name: obj for m in mods for name, obj in vars(m).items()
             if isinstance(obj, type) and issubclass(obj, tuple)
             and hasattr(obj, "_fields")}
@@ -54,6 +63,8 @@ def to_numpy(x, name: str | None = None):
     overwrites.
     """
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         a = x.detach().to("cpu", copy=True).numpy()
         if name in HKEY_FIELDS:
             return a.view(np.uint32)
@@ -80,6 +91,9 @@ def from_numpy(x, device, name: str | None = None):
     a = np.asarray(x)
     if a.dtype == np.uint32:
         a = a.view(np.int32) if name in HKEY_FIELDS else a.astype(np.int64)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a, copy=True, order="C").view(np.uint16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
 
 
@@ -135,3 +149,84 @@ def fabric_carry_from_numpy(carry, draws, device):
         draws=draws,
         local_frac=from_numpy(carry.local_frac, device),
         spine_drops=from_numpy(carry.spine_drops, device))
+
+
+# leading layer axes the reference stacks, per top-level key
+LM_PARAM_STACKED = {"blocks": 1, "dense_blocks": 1, "slstm": 1,
+                    "mamba_lead": 1, "mlstm": 2, "mamba": 2}
+LM_STATE_STACKED = {"cache": 1, "dense_cache": 1, "attn_cache": 1,
+                    "slstm": 1, "lead": 1, "mlstm": 2, "mamba": 2}
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def lm_params_from_reference(model, tree):
+    """Load the reference's parameter tree (``init_params``'s dict, numpy
+    leaves) into the port's ``models.Model`` of the same config, in place;
+    returns ``model``.  Stacked leaves (``[L, ...]``; ``[units, k-1, ...]``
+    for mLSTM, ``[units, k, ...]`` for Mamba) are split per layer, and
+    every one of the model's parameters must be matched."""
+    sd = {}
+    for path, leaf in _paths(tree):
+        a = np.asarray(leaf)
+        depth = LM_PARAM_STACKED.get(path[0], 0)
+        for idx in np.ndindex(*a.shape[:depth]):
+            key = ".".join((path[0], *map(str, idx), *path[1:]))
+            sd[key] = from_numpy(a[idx], "cpu")
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def _index(node, i):
+    if _is_namedtuple(node):
+        return type(node)(*(_index(v, i) for v in node))
+    if isinstance(node, tuple):
+        return tuple(_index(v, i) for v in node)
+    return node[i]
+
+
+def _first_leaf(node):
+    return _first_leaf(node[0]) if isinstance(node, tuple) else node
+
+
+def _unstack(node, depth, device):
+    if depth == 0:
+        return from_numpy(node, device)
+    return [_unstack(_index(node, i), depth - 1, device)
+            for i in range(len(_first_leaf(node)))]
+
+
+def _stack(parts):
+    first = parts[0]
+    if isinstance(first, tuple):
+        items = [_stack([p[i] for p in parts]) for i in range(len(first))]
+        return type(first)(*items) if _is_namedtuple(first) else tuple(items)
+    return np.stack(parts)
+
+
+def _restack(items, depth):
+    if depth == 0:
+        return to_numpy(items)
+    return _stack([_restack(x, depth - 1) for x in items])
+
+
+def lm_state_from_reference(state, device):
+    """The reference's decode state (``init_decode_state``'s dict, numpy
+    leaves, its ``-1e30`` / ``1e-6`` initial values included) -> the
+    port's, one entry per layer on ``device``."""
+    return {k: _unstack(v, LM_STATE_STACKED.get(k, 0), device)
+            for k, v in state.items()}
+
+
+def lm_state_to_reference(state):
+    """The port's decode state -> the reference's layout: numpy leaves,
+    layers stacked on the leading axes (the port's NamedTuples keep the
+    reference's class and field names)."""
+    return {k: _restack(v, LM_STATE_STACKED.get(k, 0))
+            for k, v in state.items()}

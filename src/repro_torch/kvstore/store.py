@@ -1,11 +1,18 @@
-"""Deterministic value bytes (port of ``repro.kvstore.store.synth_value``
-and its numpy twin ``synth_value_np``)."""
+"""Key-value storage (port of ``repro.kvstore.store``).
+
+* ``ByteStore``: a byte-accurate host store for tests and small systems:
+  variable-length keys and values in padded uint8 arrays, with insert /
+  get / update, plus each key's 128-bit hash (the shim layer's HKEY).
+* ``synth_value`` (and its numpy twin ``synth_value_np``): deterministic
+  value bytes of ``(key, version)``, so a 10M-key store needs no value
+  memory and a stale value is detectable by its content.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.hashing import _M32, _mul32, to_u32
+from repro_torch.core.hashing import _M32, _mul32, hash128_bytes_np, to_u32
 
 
 def synth_value(kidx: torch.Tensor, version: torch.Tensor, width: int,
@@ -45,3 +52,60 @@ def synth_value_np(kidx, version, width: int) -> np.ndarray:
         x = (x * np.uint32(0x846CA68B)).astype(np.uint32)
         x ^= x >> np.uint32(16)
     return (x & np.uint32(0xFF)).astype(np.uint8)
+
+
+class ByteStore:
+    """Byte-accurate variable-length KV store (host side, numpy)."""
+
+    def __init__(self, key_pad: int = 64, value_pad: int = 1438,
+                 capacity: int = 4096):
+        self.key_pad = key_pad
+        self.value_pad = value_pad
+        self.keys = np.zeros((capacity, key_pad), np.uint8)
+        self.klen = np.zeros(capacity, np.int32)
+        self.vals = np.zeros((capacity, value_pad), np.uint8)
+        self.vlen = np.zeros(capacity, np.int32)
+        self.hkey = np.zeros((capacity, 4), np.uint32)
+        self.version = np.zeros(capacity, np.int32)
+        self.used = np.zeros(capacity, bool)
+        self._index: dict[bytes, int] = {}
+
+    def put(self, key: bytes, value: bytes) -> int:
+        """Insert ``key`` into the first free slot, or overwrite its value
+        and bump its version; returns the slot."""
+        if len(key) > self.key_pad or len(value) > self.value_pad:
+            raise ValueError("key/value exceeds pad")
+        if key in self._index:
+            i = self._index[key]
+            self.vals[i] = 0
+            self.vals[i, : len(value)] = np.frombuffer(value, np.uint8)
+            self.vlen[i] = len(value)
+            self.version[i] += 1
+            return i
+        free = np.flatnonzero(~self.used)
+        if len(free) == 0:
+            raise RuntimeError("store full")
+        i = int(free[0])
+        self.used[i] = True
+        self.keys[i, : len(key)] = np.frombuffer(key, np.uint8)
+        self.klen[i] = len(key)
+        self.vals[i, : len(value)] = np.frombuffer(value, np.uint8)
+        self.vlen[i] = len(value)
+        self.hkey[i] = hash128_bytes_np(key)
+        self.version[i] = 0
+        self._index[key] = i
+        return i
+
+    def get(self, key: bytes) -> tuple[bytes, int] | None:
+        i = self._index.get(key)
+        if i is None:
+            return None
+        return bytes(self.vals[i, : self.vlen[i]]), int(self.version[i])
+
+    def get_by_idx(self, i: int) -> tuple[bytes, bytes, int]:
+        return (bytes(self.keys[i, : self.klen[i]]),
+                bytes(self.vals[i, : self.vlen[i]]),
+                int(self.version[i]))
+
+    def __len__(self) -> int:
+        return int(self.used.sum())

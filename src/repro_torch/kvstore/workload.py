@@ -7,7 +7,7 @@ both packages sample the same keys from the same uniforms.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import numpy as np
@@ -33,6 +33,29 @@ class WorkloadConfig:
     offered_rps: float = 4.0e6
     seed: int = 0
     value_seed: int = 5
+
+
+# Paper Fig. 14: Twitter-derived workloads A–E = Cluster045/016/044/017/020,
+# characterized by (fraction of small 64-B values = NetCache-cacheable ratio,
+# write ratio).
+PRODUCTION_WORKLOADS: dict[str, dict] = {
+    "A": dict(small_frac=0.95, write_ratio=0.20),   # Cluster045
+    "B": dict(small_frac=0.70, write_ratio=0.05),   # Cluster016
+    "C": dict(small_frac=0.50, write_ratio=0.10),   # Cluster044
+    "D": dict(small_frac=0.25, write_ratio=0.02),   # Cluster017
+    "E": dict(small_frac=0.01, write_ratio=0.01),   # Cluster020
+}
+
+
+def production_workload(name: str,
+                        base: WorkloadConfig | None = None) -> WorkloadConfig:
+    """``base`` (default ``WorkloadConfig()``) with workload ``name``'s
+    value-size split (64 B and 1024 B) and write ratio."""
+    base = base or WorkloadConfig()
+    p = PRODUCTION_WORKLOADS[name]
+    sf = p["small_frac"]
+    return replace(base, value_sizes=((64, sf), (1024, 1.0 - sf)),
+                   write_ratio=p["write_ratio"])
 
 
 class Workload:

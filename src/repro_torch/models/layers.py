@@ -1,0 +1,167 @@
+"""Common layers: RMSNorm, SwiGLU MLP, linear init, RoPE and M-RoPE
+(port of ``repro.models.layers``).
+
+Weights keep the reference's layouts (a linear's ``w`` is ``[d_in,
+*d_out]``), so a reference parameter tree loads leaf for leaf
+(``interop.lm_params_from_reference``).  :class:`Init` draws them from one
+``torch.Generator`` with the reference's distributions (normal x scale in
+float32, cast to the weight's dtype); it does not reproduce ``jax.random``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------------------
+# init / linear
+# ---------------------------------------------------------------------------
+class Init:
+    """Draws weights on ``device`` from ``generator`` (which may live on
+    another device: the draws move).  Every weight is a frozen
+    ``nn.Parameter``: this package serves and does not train."""
+
+    def __init__(self, generator: torch.Generator, device):
+        self.gen, self.device = generator, torch.device(device)
+
+    def _param(self, t: torch.Tensor) -> nn.Parameter:
+        return nn.Parameter(t, requires_grad=False)
+
+    def normal(self, shape, scale: float, dtype) -> nn.Parameter:
+        t = torch.randn(tuple(shape), generator=self.gen,
+                        dtype=torch.float32, device=self.gen.device) * scale
+        return self._param(t.to(device=self.device, dtype=dtype))
+
+    def full(self, shape, value: float, dtype) -> nn.Parameter:
+        return self._param(torch.full(tuple(shape), value, dtype=dtype,
+                                      device=self.device))
+
+    def tensor(self, t: torch.Tensor) -> nn.Parameter:
+        return self._param(t.to(self.device))
+
+
+class Linear(nn.Module):
+    """``w [d_in, *d_out]`` (normal x ``scale``) and an optional zero
+    bias ``b [*d_out]``."""
+
+    def __init__(self, init: Init, d_in: int, d_out, bias: bool = False,
+                 scale: float = 0.02, dtype=torch.bfloat16):
+        super().__init__()
+        shape = (d_in,) + (d_out if isinstance(d_out, tuple) else (d_out,))
+        self.w = init.normal(shape, scale, dtype)
+        if bias:
+            self.b = init.full(shape[1:], 0.0, dtype)
+
+    def forward(self, x):
+        return linear(x, self)
+
+
+def linear(x: torch.Tensor, p) -> torch.Tensor:
+    """Contract ``x``'s last dim with ``p.w``'s first; the result has
+    ``x``'s dtype (the reference's ``preferred_element_type``), computed in
+    the promoted dtype of the two operands."""
+    w = p.w
+    ct = torch.promote_types(x.dtype, w.dtype)
+    y = x.to(ct).reshape(-1, w.shape[0]) @ w.to(ct).reshape(w.shape[0], -1)
+    y = y.to(x.dtype).reshape(*x.shape[:-1], *w.shape[1:])
+    b = getattr(p, "b", None)
+    return y if b is None else y + b
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+class RMSNorm(nn.Module):
+    def __init__(self, init: Init, d: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.g = init.full((d,), 1.0, dtype)
+
+
+def rmsnorm(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p.g
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, init: Init, heads: int, d: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.g = init.full((heads, d), 1.0, dtype)
+
+
+def groupnorm_heads(x: torch.Tensor, p, eps: float = 1e-5) -> torch.Tensor:
+    """Per-head RMS norm over the head dim: x [..., H, dh]."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * p.g
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+class MLP(nn.Module):
+    def __init__(self, init: Init, d: int, d_ff: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.gate = Linear(init, d, d_ff, dtype=dtype)
+        self.up = Linear(init, d, d_ff, dtype=dtype)
+        self.down = Linear(init, d_ff, d, dtype=dtype)
+
+    def forward(self, x):
+        return mlp(x, self)
+
+
+def mlp(x: torch.Tensor, p) -> torch.Tensor:
+    return linear(F.silu(linear(x, p.gate)) * linear(x, p.up), p.down)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """``1 / theta ** (2i / dh)`` in float32, in the reference's order: the
+    power, then its reciprocal (no scalar is divided by a tensor, which
+    torch would round twice).  The power is taken in float64 and rounded
+    once.  Neither float32 ``pow`` is correctly rounded, so bit equality
+    with XLA's cannot be had: over dh 2..298 and six thetas this differs
+    from it in 72 of 67,050 slots (torch's float32 ``pow`` in 834), each
+    by one ulp."""
+    ex = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                      device=device) / head_dim
+    th = torch.tensor(theta, dtype=torch.float64, device=device)
+    return torch.reciprocal(torch.pow(th, ex.double()).float())
+
+
+def _rotate(x, ang):
+    dh = x.shape[-1]
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
+    """x: [B, S, H, dh]; pos: [B, S] (int) -> rotated x (pairwise halves)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # [dh/2]
+    return _rotate(x, pos[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor,
+                sections: tuple[int, ...], theta: float) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    x: [B, S, H, dh]; pos3: [3, B, S] (temporal, height, width positions).
+    ``sections`` split dh/2 frequency slots among the three position kinds.
+    """
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)
+    # pick which position stream drives each frequency slot
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])[: dh // 2]
+    pos_sel = pos3.permute(1, 2, 0).float()[..., sec]            # [B,S,dh/2]
+    return _rotate(x, pos_sel * freqs)

@@ -1,1 +1,3 @@
-"""Serving on the orbit ring: the distributed key-value service."""
+"""Serving: the batched decode engine and the OrbitCache-backed
+distributed key-value service on the orbit ring."""
+from .engine import ServeConfig, ServeEngine  # noqa: F401
