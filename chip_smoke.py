@@ -174,7 +174,23 @@ line; any failure exits non-zero:
    12th stepwise decode logits against the full forward's within 2e-2;
 23. ``lm_archs``: every arch at ``reduced()`` size in float32, forward
    and 4 decode steps on the card against the CPU within 1e-3, and greedy
-   tokens of the reduced qwen2-0.5b equal.  The LM phases launch none of
+   tokens of the reduced qwen2-0.5b equal;
+24. ``lm_train``: qwen2-0.5b at full width (bf16, remat on) through
+   ``launch/train.py``'s ``main`` and defaults (seq 256, batch 16, 2
+   microbatches, lr 3e-3, warmup 5), 10 steps of ``SyntheticStream``
+   data (cut from 20 for the script's time): the loss falls; ms a step, tokens/s, peak memory, device ms and
+   busy share over 2 profiled steps, the FLOP bound (6 N T plus the
+   causal attention) over the dense bf16 peak and the model-FLOP share;
+   then 6 steps straight against 3, a ``checkpoint.save``, a ``restore``
+   into a fresh model and 3 more, under deterministic algorithms (cuBLAS
+   workspace ``:4096:8``, set before the first cuBLAS call): parameters
+   and moments bit-equal;
+25. ``lm_train_accum``: the same in float32 (TF32 off), one step each
+   with 1, 2 and 4 microbatches (within rtol 2e-4, atol 2e-5, the
+   reference's bound) and with remat on and off;
+26. ``lm_train_archs``: every arch at ``reduced()`` size in float32, one
+   ``train_step`` on the card against the CPU (loss, grad norm,
+   parameters, ``mu``, ``nu``) within 1e-3.  The LM phases launch none of
    the four kernels (``kernels.LAUNCHES`` unchanged).
 
 Every phase line carries ``t_s``, the seconds since the script started.
@@ -195,6 +211,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 sys.path.insert(0, os.path.join(HERE, "tests"))     # torch_composed.py
+
+# lm_train's resume check runs under torch.use_deterministic_algorithms,
+# which needs a fixed cuBLAS workspace set before the first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -3400,12 +3420,13 @@ LM_ARCH_STEPS = 4
 LM_PROFILE_STEPS = 8
 
 
-def lm_busy_share(run):
+def lm_busy_share(run, top=None):
     """``run()`` under ``torch.profiler`` (device activity only) after the
     lead-in spin kernels of ``analysis/profile.py`` (seen, they prove that
     the session recorded the run's kernels): ``(device ms, wall ms,
     device kernels)`` of the run, the device time summed over its kernels
-    and copies."""
+    and copies; with ``top``, a fourth item: the ``top`` kernel names by
+    device time, each ``[name, device ms, count]``."""
     from repro_torch.analysis.profile import LEAD_IN
 
     torch.cuda.synchronize()
@@ -3426,8 +3447,13 @@ def lm_busy_share(run):
         raise AssertionError("the profiler dropped every lead-in kernel: "
                              "the decode steps' records may be incomplete")
     run_events = [e for e in events if "spin_kernel" not in e.key]
-    return (device_us(run_events) / 1e3, wall * 1e3,
-            sum(e.count for e in run_events))
+    out = (device_us(run_events) / 1e3, wall * 1e3,
+           sum(e.count for e in run_events))
+    if top is None:
+        return out
+    ranked = sorted(run_events, key=lambda e: -device_us([e]))[:top]
+    return out + ([[e.key[:80], device_us([e]) / 1e3, e.count]
+                   for e in ranked],)
 
 
 def lm_inputs(cfg, seed=0, steps=LM_ARCH_STEPS, b=2, s=12):
@@ -3655,8 +3681,297 @@ def run_lm_archs(dev):
           greedy_tokens_equal=True, seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# language-model training (src/repro_torch/{training,launch/train.py})
+# ---------------------------------------------------------------------------
+LM_TRAIN_STEPS = 10           # depth cut: launch/train.py runs 200
+LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_MB = 256, 16, 2   # its defaults
+LM_TRAIN_PROFILE_STEPS = 2
+LM_RESUME_STEPS = 3           # 2 x 3 steps against 6 straight
+LM_ACCUM_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_training.py:57
+BF16_DENSE_FLOPS = 989e12     # H100 SXM dense bf16 data sheet peak
+
+
+def train_flops(cfg, tokens, seq):
+    """Model FLOPs of one training step: 6 N T for the weights, plus the
+    causal attention's 6 L S H dh T (QK^T and PV, half the square, forward
+    and backward); rematerialisation's recompute is not counted."""
+    n = cfg.param_count()
+    attn = 6 * cfg.num_layers * seq * cfg.num_heads * cfg.resolved_head_dim
+    return 6 * n * tokens + attn * tokens
+
+
+def run_lm_train(dev):
+    """``lm_train``: qwen2-0.5b at full width (bf16, remat on) through
+    ``launch/train.py``'s ``main`` with its defaults (seq 256, batch 16, 2
+    microbatches, lr 3e-3, warmup 5), 10 steps of ``SyntheticStream``
+    data: the first and last loss, ms a step and tokens/s (the median of
+    steps 2-9), 2 more steps profiled (device ms, busy share, the kernels
+    that take the most device time), the peak memory, the step's FLOP bound over the dense
+    bf16 peak and the model-FLOP share.  Then the resume check: 6 steps
+    straight against 3 steps, a ``checkpoint.save`` of the parameters and
+    the AdamW state, a ``restore`` into a fresh model and 3 more, under
+    ``torch.use_deterministic_algorithms(True)``: parameters and moments
+    bit-equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = train_launch.main(["--arch", LM_ARCH, "--steps",
+                             str(LM_TRAIN_STEPS)])
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses, step_s = out["losses"], out["step_s"]
+    model, opt = out["model"], out["opt"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"lm_train: loss {losses[0]} -> {losses[-1]}")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    step_ms = float(np.median(step_s[2:])) * 1e3
+
+    tc = TrainConfig(microbatches=LM_TRAIN_MB, opt=AdamWConfig(
+        lr=3e-3, warmup_steps=5, total_steps=LM_TRAIN_STEPS))
+    step = make_train_step(cfg, tc)
+    ds = SyntheticStream(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ,
+                                    LM_TRAIN_BATCH), device=dev)
+    batches = [ds.batch(LM_TRAIN_STEPS + i)
+               for i in range(LM_TRAIN_PROFILE_STEPS)]
+
+    def profiled():
+        o = opt
+        for b in batches:
+            o, mt = step(model, o, b)
+        return mt
+    t1 = time.perf_counter()
+    dev_ms, wall_ms, n_kernels, top = lm_busy_share(profiled, top=8)
+    profile_s = time.perf_counter() - t1
+    del model, opt, out
+    torch.cuda.empty_cache()
+
+    flops = train_flops(cfg, tokens, LM_TRAIN_SEQ)
+    bound_ms = flops / BF16_DENSE_FLOPS * 1e3
+    resume = lm_resume_check(dev, cfg, tc, ds, step)
+    phase("lm_train", arch=cfg.name, layers=cfg.num_layers,
+          d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+          remat=cfg.remat, params=n_params, seq=LM_TRAIN_SEQ,
+          batch=LM_TRAIN_BATCH, microbatches=LM_TRAIN_MB, lr=3e-3,
+          warmup=5, steps=LM_TRAIN_STEPS, loss_first=losses[0],
+          loss_last=losses[-1], ms_per_step=step_ms,
+          step_ms_all=[round(x * 1e3, 3) for x in step_s],
+          tokens_per_step=tokens, tokens_per_s=tokens / step_ms * 1e3,
+          profiled_steps=LM_TRAIN_PROFILE_STEPS,
+          device_ms_per_step=dev_ms / LM_TRAIN_PROFILE_STEPS,
+          profiled_wall_ms_per_step=wall_ms / LM_TRAIN_PROFILE_STEPS,
+          device_busy_share=dev_ms / wall_ms,
+          device_kernels_per_step=n_kernels / LM_TRAIN_PROFILE_STEPS,
+          top_kernels_ms_per_step=[[k, ms / LM_TRAIN_PROFILE_STEPS, n]
+                                   for k, ms, n in top],
+          profile_s=profile_s, max_memory_allocated=peak,
+          step_flops=flops, flop_bound_ms=bound_ms, bound_by="operations",
+          model_flop_share=bound_ms / step_ms, resume=resume,
+          seconds=time.perf_counter() - t0)
+
+
+def lm_resume_check(dev, cfg, tc, ds, step):
+    """6 steps straight against 3, a checkpoint, a restore into a fresh
+    model (other weights) and 3 more, deterministic algorithms on (the
+    gather backward passes, ``table[tokens]`` and ``loss_fn``'s gather,
+    accumulate with atomics otherwise): ``dict(bit_equal, seconds)``,
+    failing unless every parameter and moment is bit-equal."""
+    import shutil
+    import tempfile
+
+    from repro_torch.models import build_model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import adamw_init
+
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="lm_resume_")
+    try:
+        def run(model, opt, steps):
+            for i in steps:
+                opt, _ = step(model, opt, ds.batch(i))
+            return opt
+
+        n = LM_RESUME_STEPS
+        straight = build_model(cfg, device=dev, seed=0)
+        opt_s = run(straight, adamw_init(dict(straight.named_parameters()),
+                                         tc.opt), range(2 * n))
+        first = build_model(cfg, device=dev, seed=0)
+        opt = run(first, adamw_init(dict(first.named_parameters()), tc.opt),
+                  range(n))
+        t1 = time.perf_counter()
+        ckpt.save(tmp, n - 1, {"params": dict(first.named_parameters()),
+                               "opt": opt})
+        save_s = time.perf_counter() - t1
+        del first, opt
+        fresh = build_model(cfg, device=dev, seed=1)
+        params = dict(fresh.named_parameters())
+        t1 = time.perf_counter()
+        state = ckpt.restore(tmp, ckpt.latest(tmp), {
+            "params": params, "opt": adamw_init(params, tc.opt)})
+        restore_s = time.perf_counter() - t1
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(state["params"][k])
+        opt_r = run(fresh, state["opt"], range(n, 2 * n))
+        for k, p in straight.named_parameters():
+            if not (torch.equal(p, params[k])
+                    and torch.equal(opt_s.mu[k], opt_r.mu[k])
+                    and torch.equal(opt_s.nu[k], opt_r.nu[k])):
+                raise AssertionError(f"lm_train resume: {k} differs")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(tmp) for f in fs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    del straight, fresh, params, state, opt_s, opt_r
+    torch.cuda.empty_cache()
+    return dict(steps=f"{2 * n} straight vs {n} + restore + {n}",
+                bit_equal=True, deterministic_algorithms=True,
+                cublas_workspace=os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+                checkpoint_bytes=ckpt_bytes, save_s=save_s,
+                restore_s=restore_s, seconds=time.perf_counter() - t0)
+
+
+def run_lm_train_accum(dev):
+    """``lm_train_accum``: qwen2-0.5b at full width in float32 (TF32 off),
+    one step from the same weights with 1, 2 and 4 microbatches (the
+    parameters within the reference's rtol 2e-4, atol 2e-5 of each
+    other), and with remat on and off (2 microbatches)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm_train_accum: TF32 matmuls are on")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(LM_ARCH), dtype="float32")
+    batch = SyntheticStream(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ,
+                                       LM_TRAIN_BATCH), device=dev).batch(0)
+
+    def one_step(mb, remat=True):
+        c = dataclasses.replace(cfg, remat=remat)
+        model = build_model(c, device=dev, seed=0)
+        tc = TrainConfig(microbatches=mb, opt=AdamWConfig(lr=1e-3))
+        _, mt = make_train_step(c, tc)(
+            model, adamw_init(dict(model.named_parameters()), tc.opt), batch)
+        return {k: p.detach() for k, p in model.named_parameters()}, mt
+
+    def diff(a, b):
+        err, close = 0.0, True
+        for k in a:
+            d = (a[k] - b[k]).abs()
+            err = max(err, float(d.max()))
+            close &= bool((d <= LM_ACCUM_TOL["atol"]
+                           + LM_ACCUM_TOL["rtol"] * b[k].abs()).all())
+        return err, close, all(torch.equal(a[k], b[k]) for k in a)
+
+    base, mt1 = one_step(1)
+    errs = {}
+    for mb in (2, 4):
+        p, _ = one_step(mb)
+        err, close, equal = diff(p, base)
+        if not close:
+            raise AssertionError(f"lm_train_accum: {mb} microbatches differ "
+                                 f"from 1 by {err}")
+        errs[f"mb{mb}_vs_mb1"] = dict(max_abs_err=err, bit_equal=equal)
+        del p
+    del base
+    on, _ = one_step(2, remat=True)
+    off, _ = one_step(2, remat=False)
+    err, close, equal = diff(on, off)
+    if not close:
+        raise AssertionError(f"lm_train_accum: remat changes the step by "
+                             f"{err}")
+    del on, off
+    torch.cuda.empty_cache()
+    phase("lm_train_accum", arch=cfg.name, dtype=cfg.dtype,
+          seq=LM_TRAIN_SEQ, batch=LM_TRAIN_BATCH, loss=float(mt1["loss"]),
+          microbatches=errs,
+          remat_on_vs_off=dict(max_abs_err=err, bit_equal=equal),
+          tolerance=LM_ACCUM_TOL,
+          allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+          seconds=time.perf_counter() - t0)
+
+
+def lm_train_batch(cfg, seed=0, b=4, s=16):
+    """A training batch of ``cfg`` made from ``seed`` (CPU tensors):
+    random tokens (frame embeddings for audio) and labels, the vision
+    stub's embeddings and M-RoPE positions."""
+    rng = np.random.default_rng(seed)
+    t = torch.from_numpy
+    if cfg.num_codebooks:
+        return {"frame_embeds": t(rng.standard_normal(
+                    (b, s, cfg.d_model)).astype(np.float32)),
+                "labels": t(rng.integers(0, cfg.vocab_size,
+                                         (b, s, cfg.num_codebooks)))}
+    batch = {"tokens": t(rng.integers(0, cfg.vocab_size, (b, s)))}
+    s_tot = s
+    if cfg.frontend == "vision_stub":
+        tv = cfg.vision_tokens
+        s_tot = s + tv
+        batch["vision_embeds"] = t(rng.standard_normal(
+            (b, tv, cfg.d_model)).astype(np.float32))
+        batch["mrope_pos"] = t(np.stack([np.broadcast_to(
+            np.arange(s_tot, dtype=np.int32) // (k + 1), (b, s_tot))
+            for k in range(3)]))
+    batch["labels"] = t(rng.integers(0, cfg.vocab_size, (b, s_tot)))
+    return batch
+
+
+def run_lm_train_archs(dev):
+    """``lm_train_archs``: every arch at ``reduced()`` size in float32
+    (weights from seed 0 on the CPU, copied to the card): one
+    ``train_step`` (2 microbatches, lr 1e-3) on the card against the same
+    on the CPU, loss, grad norm, parameters, ``mu`` and ``nu`` leaf for
+    leaf within rtol = atol = 1e-3."""
+    import copy
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    errs = {}
+    tc = TrainConfig(microbatches=2, opt=AdamWConfig(lr=1e-3))
+    for name in sorted(ARCHS):
+        cfg = dataclasses.replace(reduced(ARCHS[name]), dtype="float32")
+        cpu = build_model(cfg, device="cpu", seed=0)
+        card = copy.deepcopy(cpu).to(dev)
+        batch = lm_train_batch(cfg)
+        step = make_train_step(cfg, tc)
+        o_c, m_c = step(cpu, adamw_init(dict(cpu.named_parameters()),
+                                        tc.opt), batch)
+        o_g, m_g = step(card, adamw_init(dict(card.named_parameters()),
+                                         tc.opt),
+                        {k: v.to(dev) for k, v in batch.items()})
+        what = f"lm_train_archs {name}"
+        e = lm_err([m_g["loss"], m_g["grad_norm"], m_g["aux_loss"]],
+                   [m_c["loss"], m_c["grad_norm"], m_c["aux_loss"]],
+                   f"{what} metrics", LM_CARD_TOL)
+        e = max(e, lm_err(list(card.parameters()), list(cpu.parameters()),
+                          f"{what} params", LM_CARD_TOL))
+        e = max(e, lm_err([o_g.mu, o_g.nu], [o_c.mu, o_c.nu],
+                          f"{what} moments", LM_CARD_TOL))
+        errs[name] = e
+    phase("lm_train_archs", archs=len(errs), dtype="float32",
+          microbatches=2, max_abs_err=errs,
+          tolerance=dict(rtol=LM_CARD_TOL, atol=LM_CARD_TOL),
+          seconds=time.perf_counter() - t0)
+
+
 def run_lm(dev):
-    """The three language-model phases; they launch none of the four
+    """The six language-model phases; they launch none of the four
     kernels, so ``kernels.LAUNCHES`` must be unchanged by them."""
     from repro_torch import kernels as kn
 
@@ -3664,6 +3979,9 @@ def run_lm(dev):
     run_lm_serve(dev)
     run_lm_decode_vs_forward(dev)
     run_lm_archs(dev)
+    run_lm_train(dev)
+    run_lm_train_accum(dev)
+    run_lm_train_archs(dev)
     if dict(kn.LAUNCHES) != before:
         raise AssertionError(f"the LM phases launched a kernel: {before} -> "
                              f"{dict(kn.LAUNCHES)}")

@@ -23,7 +23,10 @@ A language model's parameters and decode state cross with
 :func:`lm_state_to_reference`: the reference stacks layers on leading
 axes, the port keeps one module (one state entry) per layer.  bfloat16
 leaves arrive as ``ml_dtypes`` arrays and leave the port as float32 numpy
-(exact; numpy has no bfloat16 of its own).
+(exact; numpy has no bfloat16 of its own).  Training crosses the other
+way with :func:`lm_params_to_reference` (parameters or their grads) and
+the AdamW state with :func:`adamw_state_from_reference` and
+:func:`adamw_state_to_reference`.
 """
 from __future__ import annotations
 
@@ -166,21 +169,84 @@ def _paths(tree, prefix=()):
         yield prefix, tree
 
 
-def lm_params_from_reference(model, tree):
-    """Load the reference's parameter tree (``init_params``'s dict, numpy
-    leaves) into the port's ``models.Model`` of the same config, in place;
-    returns ``model``.  Stacked leaves (``[L, ...]``; ``[units, k-1, ...]``
-    for mLSTM, ``[units, k, ...]`` for Mamba) are split per layer, and
-    every one of the model's parameters must be matched."""
-    sd = {}
+def lm_tree_from_reference(tree, device):
+    """A reference tree shaped like the parameters (numpy leaves) -> a
+    dict of the port's parameter names -> tensors on ``device``, stacked
+    leaves (``[L, ...]``; ``[units, k-1, ...]`` for mLSTM, ``[units, k,
+    ...]`` for Mamba) split per layer."""
+    out = {}
     for path, leaf in _paths(tree):
         a = np.asarray(leaf)
         depth = LM_PARAM_STACKED.get(path[0], 0)
         for idx in np.ndindex(*a.shape[:depth]):
             key = ".".join((path[0], *map(str, idx), *path[1:]))
-            sd[key] = from_numpy(a[idx], "cpu")
-    model.load_state_dict(sd, strict=True)
+            out[key] = from_numpy(a[idx], device)
+    return out
+
+
+def lm_params_from_reference(model, tree):
+    """Load the reference's parameter tree (``init_params``'s dict, numpy
+    leaves) into the port's ``models.Model`` of the same config, in place;
+    returns ``model``.  Every one of the model's parameters must be
+    matched."""
+    model.load_state_dict(lm_tree_from_reference(tree, "cpu"), strict=True)
     return model
+
+
+def lm_params_to_reference(params):
+    """The port's parameters (a ``models.Model``, or a dict of its
+    parameter names -> tensors, such as their grads) -> the reference's
+    parameter tree: nested dicts of numpy leaves, per-layer leaves stacked
+    on the reference's leading axes."""
+    if hasattr(params, "named_parameters"):
+        params = dict(params.named_parameters())
+    groups: dict = {}
+    for name, t in params.items():
+        parts = name.split(".")
+        depth = LM_PARAM_STACKED.get(parts[0], 0)
+        path = (parts[0], *parts[1 + depth:])
+        idx = tuple(int(i) for i in parts[1: 1 + depth])
+        groups.setdefault(path, {})[idx] = to_numpy(t)
+    tree: dict = {}
+    for path, items in groups.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = (items[()] if () in items
+                          else _stack_nested(items))
+    return tree
+
+
+def _stack_nested(items):
+    """``{(i, j, ...): array}`` -> one array stacked on the index axes."""
+    firsts = sorted({idx[0] for idx in items})
+    if len(next(iter(items))) == 1:
+        return np.stack([items[(i,)] for i in firsts])
+    return np.stack([_stack_nested({idx[1:]: a for idx, a in items.items()
+                                    if idx[0] == i}) for i in firsts])
+
+
+def adamw_state_from_reference(model, st):
+    """The reference's ``AdamWState`` (numpy leaves: ``step``, ``mu`` and
+    ``nu`` shaped like the parameter tree) -> the port's, keyed by
+    ``model``'s parameter names, on ``model``'s device."""
+    from repro_torch.training.optimizer import AdamWState
+    dev = model.device
+    mu = lm_tree_from_reference(st.mu, dev)
+    nu = lm_tree_from_reference(st.nu, dev)
+    names = {k for k, _ in model.named_parameters()}
+    if set(mu) != names or set(nu) != names:
+        raise KeyError("AdamW state does not match the model's parameters: "
+                       f"{sorted(set(mu) ^ names)[:4]}")
+    return AdamWState(step=from_numpy(st.step, dev), mu=mu, nu=nu)
+
+
+def adamw_state_to_reference(st):
+    """The port's ``AdamWState`` -> the reference's layout (numpy leaves,
+    ``mu`` / ``nu`` restacked like :func:`lm_params_to_reference`), as the
+    port's ``AdamWState`` class, which has the reference's field names."""
+    return type(st)(step=to_numpy(st.step), mu=lm_params_to_reference(st.mu),
+                    nu=lm_params_to_reference(st.nu))
 
 
 def _index(node, i):

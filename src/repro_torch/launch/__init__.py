@@ -1,1 +1,1 @@
-"""Launchers: serve."""
+"""Launchers: serve, train."""

@@ -24,8 +24,10 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 class Init:
     """Draws weights on ``device`` from ``generator`` (which may live on
-    another device: the draws move).  Every weight is a frozen
-    ``nn.Parameter``: this package serves and does not train."""
+    another device: the draws move).  Every weight is an ``nn.Parameter``
+    created frozen, so serving builds no autograd graph; the trainer
+    (``training.train_step``) makes them trainable with
+    ``model.requires_grad_(True)``."""
 
     def __init__(self, generator: torch.Generator, device):
         self.gen, self.device = generator, torch.device(device)

@@ -15,6 +15,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import resolve_device
@@ -142,44 +143,73 @@ def _head(model, x, cfg):
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
+def _scan(body, x, aux, units, remat: bool):
+    """Loop ``body(x, aux, unit) -> (x, aux)`` over ``units``; with
+    ``remat`` each call is checkpointed (its activations are recomputed in
+    the backward pass), as the reference's ``scan_layers`` wraps the scan
+    body in ``jax.checkpoint(..., nothing_saveable)``."""
+    for unit in units:
+        if remat:
+            x, aux = checkpoint(body, x, aux, unit, use_reentrant=False)
+        else:
+            x, aux = body(x, aux, unit)
+    return x, aux
+
+
 def forward(model, batch, cfg: ModelConfig):
-    """Full-sequence forward.  Returns (logits, aux_loss)."""
+    """Full-sequence forward.  Returns (logits, aux_loss).
+
+    With ``cfg.remat`` and grad enabled, the body of each reference scan
+    step is rematerialised: one block (dense, moe, audio, vlm), one xLSTM
+    unit (k-1 mLSTM + 1 sLSTM), one zamba2 unit (k Mamba2 blocks and the
+    shared attention/MLP), one lead Mamba2 block."""
     x, mrope_pos = _embed_inputs(model, batch, cfg)
     b, s, _ = x.shape
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
         b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
+    remat = cfg.remat and torch.is_grad_enabled()
 
     if fam in ("dense", "audio", "vlm", "moe"):
+        def make_body(use_moe):
+            def body(h, a, blk):
+                h, _kv, aux_l = attn_mlp_forward(
+                    h, blk, cfg, pos, use_moe, mrope_pos=mrope_pos)
+                return h, a + aux_l
+            return body
         stacks = [(model.blocks, fam == "moe")]
         if fam == "moe" and cfg.moe.first_dense_layers:
             stacks.insert(0, (model.dense_blocks, False))
         for blocks, use_moe in stacks:
-            for blk in blocks:
-                x, _kv, aux_l = attn_mlp_forward(
-                    x, blk, cfg, pos, use_moe, mrope_pos=mrope_pos)
-                aux = aux + aux_l
+            x, aux = _scan(make_body(use_moe), x, aux, blocks, remat)
 
     elif fam == "ssm":  # xlstm units
-        for mblocks, sblock in zip(model.mlstm, model.slstm):
+        def body(h, a, unit):
+            mblocks, sblock = unit
             for blk in mblocks:
-                x = x + xlstm_mod.mlstm_forward(x, blk, cfg)[0]
-            x = x + xlstm_mod.slstm_forward(x, sblock, cfg)[0]
+                h = h + xlstm_mod.mlstm_forward(h, blk, cfg)[0]
+            return h + xlstm_mod.slstm_forward(h, sblock, cfg)[0], a
+        x, aux = _scan(body, x, aux, zip(model.mlstm, model.slstm), remat)
 
     elif fam == "hybrid":  # zamba2 units, shared attention block
-        for blk in getattr(model, "mamba_lead", ()):
-            x = x + ssm_mod.mamba2_forward(x, blk, cfg)[0]
-        for mblocks in model.mamba:
+        def lead_body(h, a, blk):
+            return h + ssm_mod.mamba2_forward(h, blk, cfg)[0], a
+
+        def body(h, a, mblocks):
             for i, blk in enumerate(mblocks):
                 if i == len(mblocks) - 1:  # shared full-attention (+MLP)
-                    x = x + attn_mod.gqa_forward(
-                        rmsnorm(x, model.shared_ln, cfg.norm_eps),
+                    h = h + attn_mod.gqa_forward(
+                        rmsnorm(h, model.shared_ln, cfg.norm_eps),
                         model.shared_attn, cfg, pos)[0]
                     if hasattr(model, "shared_mlp"):
-                        x = x + mlp(rmsnorm(x, model.shared_ln2,
+                        h = h + mlp(rmsnorm(h, model.shared_ln2,
                                             cfg.norm_eps), model.shared_mlp)
-                x = x + ssm_mod.mamba2_forward(x, blk, cfg)[0]
+                h = h + ssm_mod.mamba2_forward(h, blk, cfg)[0]
+            return h, a
+        x, aux = _scan(lead_body, x, aux, getattr(model, "mamba_lead", ()),
+                       remat)
+        x, aux = _scan(body, x, aux, model.mamba, remat)
     else:
         raise ValueError(fam)
 

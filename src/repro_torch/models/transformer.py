@@ -11,7 +11,8 @@ Families map to repeating units of per-layer modules, looped in order:
 The reference stacks each unit's parameters and scans them
 (``scan_layers``, ``stacked_init``), with ``jax.checkpoint`` for training;
 here each layer is its own module in an ``nn.ModuleList`` and the model
-loops over them.  Rematerialisation belongs to training.
+loops over them; with ``cfg.remat`` and grad enabled it checkpoints each
+unit (``model._scan``), as the reference remats its scan body.
 """
 from __future__ import annotations
 
