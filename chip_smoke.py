@@ -190,8 +190,20 @@ line; any failure exits non-zero:
    reference's bound) and with remat on and off;
 26. ``lm_train_archs``: every arch at ``reduced()`` size in float32, one
    ``train_step`` on the card against the CPU (loss, grad norm,
-   parameters, ``mu``, ``nu``) within 1e-3.  The LM phases launch none of
-   the four kernels (``kernels.LAUNCHES`` unchanged).
+   parameters, ``mu``, ``nu``) within 1e-3;
+27. ``lm_sharded_step``: a one-rank ``nccl`` group, a 1 x 1 mesh and
+   qwen2-0.5b at full width in bf16 with DTensor parameters, ZeRO moments
+   and accumulators: 2 steps against the plain step from the same start
+   (loss, parameters, moments within test_torch_train_parity.py's bounds;
+   bit-equal or not), ms a step, device kernels a step and the host's
+   share;
+28. ``lm_dryrun``, last, after every timed phase: ``launch/dryrun.py``
+   for qwen2-0.5b ``train_4k`` and ``decode_32k`` on the 16 x 16 mesh at
+   full depth, over a ``fake`` process group of 256 ranks in a subprocess
+   the script waits for: each cell ``ok``, its argument GiB per device,
+   collectives by kind, wire bytes and the roofline terms with the H100
+   constants.  The LM phases launch none of the four kernels
+   (``kernels.LAUNCHES`` unchanged).
 
 Every phase line carries ``t_s``, the seconds since the script started.
 The line before the last two is the kernels' JSON record; the last line is
@@ -3970,8 +3982,238 @@ def run_lm_train_archs(dev):
           seconds=time.perf_counter() - t0)
 
 
-def run_lm(dev):
-    """The six language-model phases; they launch none of the four
+# ---------------------------------------------------------------------------
+# the sharding layer and the production dry run (src/repro_torch/parallel,
+# launch/{mesh,dryrun,hlo_analysis,roofline}.py)
+# ---------------------------------------------------------------------------
+LM_DRYRUN_SHAPES = ("train_4k", "decode_32k")
+LM_DRYRUN_TIMEOUT_S = 300
+LM_SHARDED_STEPS = 2
+# test_torch_train_parity.py's bounds: adamw_update's new parameters and
+# moments within BOUND float32 (bf16) eps of their magnitude, the loss
+# within rtol 1e-6
+LM_SHARDED_BOUND = {torch.float32: 6.0, torch.bfloat16: 1.01}
+LM_SHARDED_LOSS_RTOL = 1e-6
+
+
+def run_lm_dryrun(smi):
+    """``lm_dryrun``: ``python -m repro_torch.launch.dryrun`` for
+    qwen2-0.5b's ``train_4k`` and ``decode_32k`` on the 16 x 16 mesh, at
+    full depth, in a subprocess that traces on the CPU over a ``fake``
+    group of 256 ranks.  It runs after every timed phase and the script
+    waits for it, so that no host-timed number is taken beside it.  Prints
+    each cell: status, argument GiB per device (exact) and the op trace's
+    eager temp estimate, collective counts and bytes by kind, wire bytes,
+    and the roofline terms with the H100 constants of
+    ``launch/roofline.py``.  Fails unless both cells are ``ok``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import roofline
+
+    out = tempfile.mkdtemp(prefix="lm_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    try:
+        with open(os.path.join(out, "log.txt"), "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", LM_ARCH, "--shape", ",".join(LM_DRYRUN_SHAPES),
+                 "--mesh", "single", "--out", out], env=env, cwd=HERE,
+                stdout=log, stderr=subprocess.STDOUT)
+            try:
+                rc = proc.wait(timeout=LM_DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise AssertionError(
+                    "lm_dryrun: the dry run did not finish in "
+                    f"{LM_DRYRUN_TIMEOUT_S} s") from None
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out, "log.txt")) as f:
+            log = f.read()
+        if rc != 0:
+            raise AssertionError(f"lm_dryrun: exit {rc}: {log[-2000:]}")
+        for shape in LM_DRYRUN_SHAPES:
+            with open(os.path.join(out, f"{LM_ARCH}__{shape}__single.json")) as f:
+                r = json.load(f)
+            if r["status"] != "ok":
+                raise AssertionError(f"lm_dryrun {shape}: {r['status']}: "
+                                     f"{r.get('error')}")
+            t = roofline.terms(r)
+            a, m = r["analysis"], r["memory"]
+            phase("lm_dryrun", arch=LM_ARCH, cell=shape, mesh=r["mesh"],
+                  devices=r["devices"], layers=r["layers"],
+                  status=r["status"], knobs=r["knobs"],
+                  trace_s=r["lower_s"], compile_s=r["compile_s"],
+                  argument_gib_per_device=m["argument_size_in_bytes"] / 2**30,
+                  temp_gib_per_device_estimate=m["temp_size_in_bytes"] / 2**30,
+                  collective_counts=a["collective_counts"],
+                  collective_bytes_by_kind=a["collective_bytes_by_kind"],
+                  wire_bytes=a["collective_wire_bytes"], flops=a["flops"],
+                  hbm_bytes=a["hbm_bytes"], ops=a["ops"],
+                  roofline=dict(compute_ms=t["compute_s"] * 1e3,
+                                memory_ms=t["memory_s"] * 1e3,
+                                collective_ms=t["collective_s"] * 1e3,
+                                dominant=t["dominant"],
+                                useful_ratio=t["useful_ratio"],
+                                roofline_frac=t["roofline_frac"]),
+                  hardware=dict(peak_flops=roofline.PEAK_FLOPS,
+                                hbm_bw=roofline.HBM_BW,
+                                link_bw=roofline.LINK_BW),
+                  subprocess_s=seconds, nvidia_smi=smi)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def _sharded_err(got, want, what):
+    """Max |got - want| of two plain tensors; fails above the bound of
+    ``LM_SHARDED_BOUND`` for ``want``'s dtype."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    tol = LM_SHARDED_BOUND[want.dtype] * torch.finfo(want.dtype).eps
+    if not bool((d <= tol * w.abs()).all()):
+        raise AssertionError(f"lm_sharded_step: {what} differs by "
+                             f"{float(d.max())}")
+    return float(d.max()), bool(torch.equal(got, want))
+
+
+def run_lm_sharded_step(dev, smi):
+    """``lm_sharded_step``: a one-rank ``nccl`` group on the card (as
+    ``ring_process`` builds it), ``make_host_mesh()``'s 1 x 1 ``('data',
+    'model')`` mesh, and qwen2-0.5b at full width in bf16 twice from seed
+    0: one plain, one with its parameters as DTensors of ``tree_specs``,
+    the AdamW moments and the gradient accumulators in the ZeRO placements
+    of ``opt_state_specs`` and the batch split over the data axis.  Two
+    ``lm_train``-sized steps each (seq 256, batch 16, 2 microbatches)
+    under deterministic algorithms; after each, the loss, the parameters
+    and the moments of the sharded step against the plain one within
+    test_torch_train_parity.py's bounds (and whether bit-equal).  Then ms
+    a step of each, and one more step of each profiled: device kernels a
+    step and the host's share of the wall time (DTensor dispatches every
+    op on the host)."""
+    import socket
+
+    import torch.distributed as tdist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import batch_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.parallel import param_specs as pspec
+    from repro_torch.parallel import sharding
+    from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
+                                                adamw_init)
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    tc = TrainConfig(microbatches=LM_TRAIN_MB, opt=AdamWConfig(
+        lr=3e-3, warmup_steps=5, total_steps=LM_TRAIN_STEPS))
+    ds = SyntheticStream(DataConfig(cfg.vocab_size, LM_TRAIN_SEQ,
+                                    LM_TRAIN_BATCH), device=dev)
+    full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t  # noqa: E731
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                             rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh()
+        ctx = sharding.make_ctx(mesh)
+        plain = build_model(cfg, device=dev, seed=0)
+        opt_p = adamw_init(dict(plain.named_parameters()), tc.opt)
+        model = build_model(cfg, device=dev, seed=0)
+        params = dict(model.named_parameters())
+        p_specs = pspec.tree_specs(params, cfg, ctx)
+        o_specs = pspec.opt_state_specs(p_specs, params, ctx)
+        opt_s = adamw_init(params, tc.opt)
+        opt_s = AdamWState(opt_s.step,
+                           sharding.distribute(opt_s.mu, o_specs.mu, mesh),
+                           sharding.distribute(opt_s.nu, o_specs.nu, mesh))
+        sharding.distribute_parameters(model, p_specs, mesh)
+        del params
+        step_p = make_train_step(cfg, tc)
+        step_s = make_train_step(cfg, tc, ctx, accum_shardings={
+            k: sharding.placements(s, mesh) for k, s in o_specs.mu.items()})
+
+        def sharded_batch(i):
+            b = ds.batch(i)
+            return sharding.distribute(b, batch_shardings(b, cfg, ctx), mesh)
+
+        steps, ms_p, ms_s = [], [], []
+        torch.use_deterministic_algorithms(True)
+        try:
+            for i in range(LM_SHARDED_STEPS):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                opt_p, mt_p = step_p(plain, opt_p, ds.batch(i))
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                opt_s, mt_s = step_s(model, opt_s, sharded_batch(i))
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                ms_p.append((t2 - t1) * 1e3)
+                ms_s.append((t3 - t2) * 1e3)
+                lp, ls = float(mt_p["loss"]), float(full(mt_s["loss"]))
+                if not (np.isfinite(ls) and abs(ls - lp)
+                        <= LM_SHARDED_LOSS_RTOL * abs(lp)):
+                    raise AssertionError(f"lm_sharded_step {i}: loss {ls} "
+                                         f"against {lp}")
+                errs, equal = {}, ls == lp
+                pp = dict(plain.named_parameters())
+                for what, got, want in (
+                        ("params", {k: full(p) for k, p in
+                                    model.named_parameters()}, pp),
+                        ("mu", {k: full(v) for k, v in opt_s.mu.items()},
+                         opt_p.mu),
+                        ("nu", {k: full(v) for k, v in opt_s.nu.items()},
+                         opt_p.nu)):
+                    e = 0.0
+                    for k in want:
+                        err, eq = _sharded_err(got[k].detach(),
+                                               want[k].detach(),
+                                               f"step {i} {what} {k}")
+                        e, equal = max(e, err), equal and eq
+                    errs[what] = e
+                steps.append(dict(loss=ls, loss_plain=lp,
+                                  max_abs_err=errs, bit_equal=equal))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        n = LM_SHARDED_STEPS
+        dev_s, wall_s, k_s = lm_busy_share(
+            lambda: step_s(model, opt_s, sharded_batch(n)))
+        dev_p, wall_p, k_p = lm_busy_share(
+            lambda: step_p(plain, opt_p, ds.batch(n)))
+        placements = sorted({str(p.placements) for p in model.parameters()})
+    finally:
+        tdist.destroy_process_group()
+    del plain, model, opt_p, opt_s
+    torch.cuda.empty_cache()
+    phase("lm_sharded_step", arch=cfg.name, layers=cfg.num_layers,
+          d_model=cfg.d_model, vocab=cfg.vocab_size, dtype=cfg.dtype,
+          backend="nccl", world_size=1, mesh=dict(data=1, model=1),
+          seq=LM_TRAIN_SEQ, batch=LM_TRAIN_BATCH,
+          microbatches=LM_TRAIN_MB, steps=steps,
+          bound=dict(loss_rtol=LM_SHARDED_LOSS_RTOL,
+                     eps_units={str(k): v for k, v in
+                                LM_SHARDED_BOUND.items()}),
+          ms_per_step=ms_s, plain_ms_per_step=ms_p,
+          profiled=dict(sharded=dict(device_ms=dev_s, wall_ms=wall_s,
+                                     device_kernels=k_s,
+                                     host_share=1 - dev_s / wall_s),
+                        plain=dict(device_ms=dev_p, wall_ms=wall_p,
+                                   device_kernels=k_p,
+                                   host_share=1 - dev_p / wall_p)),
+          param_placements=placements, nvidia_smi=smi,
+          seconds=time.perf_counter() - t0)
+
+
+def run_lm(dev, smi):
+    """The eight language-model phases; they launch none of the four
     kernels, so ``kernels.LAUNCHES`` must be unchanged by them."""
     from repro_torch import kernels as kn
 
@@ -3982,6 +4224,8 @@ def run_lm(dev):
     run_lm_train(dev)
     run_lm_train_accum(dev)
     run_lm_train_archs(dev)
+    run_lm_sharded_step(dev, smi)
+    run_lm_dryrun(smi)
     if dict(kn.LAUNCHES) != before:
         raise AssertionError(f"the LM phases launched a kernel: {before} -> "
                              f"{dict(kn.LAUNCHES)}")
@@ -4162,7 +4406,7 @@ def main():
     run_orbit_service(dev)
     run_ring_process(dev)
     analysis_launches = run_analysis(dev, wl, held)
-    run_lm(dev)
+    run_lm(dev, smi)
 
     def launches(k):
         by_path = dict(main_path=(k == "subround") * main_launches,

@@ -217,6 +217,48 @@ def lm_params_to_reference(params):
     return tree
 
 
+def lm_reference_shapes(params) -> dict:
+    """The port's parameter names (a dict of name -> tensor or shape) ->
+    ``(path, shape)`` of the reference leaf each is a slice of: its key
+    path as the reference's ``tree_flatten_with_path`` prints it
+    (``['blocks']/['attn']/['wk']/['b']``) and its stacked shape, the
+    layer counts (taken from the names) leading."""
+    counts: dict = {}
+    split = {}
+    for name, leaf in params.items():
+        parts = name.split(".")
+        depth = LM_PARAM_STACKED.get(parts[0], 0)
+        idx = tuple(int(i) for i in parts[1: 1 + depth])
+        path = (parts[0], *parts[1 + depth:])
+        shape = tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+        split[name] = (path, idx, shape)
+        n = counts.setdefault(path, [0] * depth)
+        counts[path] = [max(a, i + 1) for a, i in zip(n, idx)]
+    return {name: ("/".join(f"[{q!r}]" for q in path),
+                   (*counts[path], *shape))
+            for name, (path, _, shape) in split.items()}
+
+
+def lm_specs_to_reference(specs: dict) -> dict:
+    """Per-parameter specs of the port (name -> tuple of entries) -> the
+    reference's tree of specs: nested dicts, each leaf's stacked layer
+    axes put back as leading ``None`` entries (every layer of a leaf must
+    have the same spec).  Leaves are plain tuples."""
+    tree: dict = {}
+    for name, spec in specs.items():
+        parts = name.split(".")
+        depth = LM_PARAM_STACKED.get(parts[0], 0)
+        path = (parts[0], *parts[1 + depth:])
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        full = (None,) * depth + tuple(spec)
+        if node.setdefault(path[-1], full) != full:
+            raise ValueError(f"{name}: {full} differs from another layer's "
+                             f"{node[path[-1]]}")
+    return tree
+
+
 def _stack_nested(items):
     """``{(i, j, ...): array}`` -> one array stacked on the index axes."""
     firsts = sorted({idx[0] for idx in items})

@@ -13,8 +13,10 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
-from .layers import Init, Linear, apply_mrope, apply_rope, linear
+from .layers import (Init, Linear, apply_mrope, apply_rope, linear,
+                     sharded_inside)
 
 NEG_INF = -1e30
 
@@ -132,7 +134,12 @@ def _proj_qkv(x, p, cfg, pos, mrope_pos):
 
 def _out_proj(o, p):
     # o: [B,S,H,dh] x wo [d, H, dh] -> [B,S,d]
-    return torch.einsum("bshd,mhd->bsm", o, p.wo.w)
+    w = p.wo.w
+    if sharded_inside(w, 2):
+        # the einsum merges (H, dh); sum the heads instead (layers.linear)
+        return sum(torch.einsum("bsd,md->bsm", o[:, :, i], w[:, i])
+                   for i in range(w.shape[1]))
+    return torch.einsum("bshd,mhd->bsm", o, w)
 
 
 def gqa_forward(x, p, cfg, pos, *, mrope_pos=None):
@@ -160,8 +167,37 @@ def gqa_decode(x, p, cfg, cache_k, cache_v, cache_len, pos, *,
 def _cache_write(cache, val, idx):
     """cache [B,T,...] <- val [B,1,...] at per-batch position idx, in place
     (one slot per sequence); returns ``cache``."""
+    if isinstance(cache, DTensor):
+        return _cache_write_sharded(cache, val, idx)
     b = cache.shape[0]
     cache[torch.arange(b, device=cache.device), idx.long()] = val[:, 0]
+    return cache
+
+
+def _cache_write_sharded(cache, val, idx):
+    """:func:`_cache_write` on a DTensor cache whose batch and sequence
+    dims may be sharded (flash-decoding: each rank holds a T slab of its
+    sequences).  Each rank writes, in its local shard, the slots that fall
+    in its slab, and rewrites the slot it already holds elsewhere (the
+    index clamped into the slab), so the write stays in place and touches
+    B slots, as the plain write does."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh, pl = cache.device_mesh, cache.placements
+    batch_only = [p if p.is_shard(0) else Replicate() for p in pl]
+    local = cache.to_local()
+    v = val.redistribute(mesh, batch_only).to_local()[:, 0]
+    i = idx.redistribute(mesh, batch_only).to_local().long()
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    i = i - offset[1]
+    t = local.shape[1]
+    inside = (i >= 0) & (i < t)
+    i = i.clamp(0, t - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    keep = inside.reshape(-1, *([1] * (v.ndim - 1)))
+    local[rows, i] = torch.where(keep, v.to(local.dtype), local[rows, i])
     return cache
 
 

@@ -12,7 +12,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.parallel.sharding import with_sharding
 
 from .layers import Init
 
@@ -35,12 +38,17 @@ class Embedding(nn.Module):
             self.head = init.normal((vocab, d), 0.02, dtype)
 
 
-def embed(tokens: torch.Tensor, p) -> torch.Tensor:
-    """tokens [B,S] -> [B,S,d]."""
-    return p.table[tokens]
+def embed(tokens: torch.Tensor, p, ctx=None) -> torch.Tensor:
+    """tokens [B,S] -> [B,S,d].  With ``ctx`` the table is vocab-sharded
+    and the rows come back batch-sharded.  ``F.embedding`` is the
+    reference's ``table[tokens]`` gather; its backward is one DTensor can
+    shard (``table[tokens]``'s accumulating ``index_put`` is not)."""
+    rows = F.embedding(tokens, p.table)
+    return with_sharding(ctx, rows, "batch", None, None)
 
 
-def embed_hot(tokens: torch.Tensor, p, hot: HotCache) -> torch.Tensor:
+def embed_hot(tokens: torch.Tensor, p, hot: HotCache,
+              ctx=None) -> torch.Tensor:
     """Hot-cache lookup: cached rows for cached ids, the table for the
     rest."""
     c = hot.ids.shape[0]
@@ -48,14 +56,16 @@ def embed_hot(tokens: torch.Tensor, p, hot: HotCache) -> torch.Tensor:
     slot = slot.clamp(0, c - 1)
     is_hot = hot.ids[slot] == tokens
     hot_rows = hot.rows[slot]
-    cold_rows = embed(torch.where(is_hot, 0, tokens), p)
+    cold_rows = embed(torch.where(is_hot, 0, tokens), p, ctx)
     return torch.where(is_hot[..., None], hot_rows, cold_rows)
 
 
-def logits(x: torch.Tensor, p, tie: bool = False) -> torch.Tensor:
-    """x [B,S,d] -> [B,S,V]."""
+def logits(x: torch.Tensor, p, ctx=None, tie: bool = False) -> torch.Tensor:
+    """x [B,S,d] -> [B,S,V] (vocab-sharded on the model axis with
+    ``ctx``)."""
     w = p.table if tie or not hasattr(p, "head") else p.head
-    return torch.einsum("bsd,vd->bsv", x, w)
+    out = torch.einsum("bsd,vd->bsv", x, w)
+    return with_sharding(ctx, out, "batch", None, "vocab")
 
 
 def refresh_hot_cache(p, counts: torch.Tensor, size: int) -> HotCache:

@@ -27,7 +27,8 @@ class Init:
     another device: the draws move).  Every weight is an ``nn.Parameter``
     created frozen, so serving builds no autograd graph; the trainer
     (``training.train_step``) makes them trainable with
-    ``model.requires_grad_(True)``."""
+    ``model.requires_grad_(True)``.  On the ``meta`` device nothing is
+    drawn (``generator`` may be None): the weights are shapes only."""
 
     def __init__(self, generator: torch.Generator, device):
         self.gen, self.device = generator, torch.device(device)
@@ -36,6 +37,9 @@ class Init:
         return nn.Parameter(t, requires_grad=False)
 
     def normal(self, shape, scale: float, dtype) -> nn.Parameter:
+        if self.device.type == "meta":
+            return self._param(torch.empty(tuple(shape), dtype=dtype,
+                                           device=self.device))
         t = torch.randn(tuple(shape), generator=self.gen,
                         dtype=torch.float32, device=self.gen.device) * scale
         return self._param(t.to(device=self.device, dtype=dtype))
@@ -70,10 +74,26 @@ def linear(x: torch.Tensor, p) -> torch.Tensor:
     the promoted dtype of the two operands."""
     w = p.w
     ct = torch.promote_types(x.dtype, w.dtype)
-    y = x.to(ct).reshape(-1, w.shape[0]) @ w.to(ct).reshape(w.shape[0], -1)
+    x2 = x.to(ct).reshape(-1, w.shape[0])
+    if sharded_inside(w, 2):
+        # a DTensor weight [d_in, H, k] sharded on k: merging (H, k) into
+        # one dim is a view DTensor refuses (torch 2.11), so one matmul
+        # per leading output index
+        y = torch.stack([x2 @ w[:, i].to(ct) for i in range(w.shape[1])], 1)
+    else:
+        y = x2 @ w.to(ct).reshape(w.shape[0], -1)
     y = y.to(x.dtype).reshape(*x.shape[:-1], *w.shape[1:])
     b = getattr(p, "b", None)
     return y if b is None else y + b
+
+
+def sharded_inside(w: torch.Tensor, first: int) -> bool:
+    """Whether ``w`` is a DTensor sharded on a dim at or past ``first``
+    (a dim that a flattening view would merge into the one before it)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(w, DTensor) and any(
+        p.is_shard() and p.dim >= first for p in w.placements)
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.parallel.sharding import with_sharding
 
 from . import attention as attn_mod
 from . import embedding as emb
@@ -95,31 +96,33 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.g.device
 
-    def forward(self, batch):
+    def forward(self, batch, ctx=None):
         """Full-sequence forward: ``(logits, aux_loss)``."""
-        return forward(self, batch, self.cfg)
+        return forward(self, batch, self.cfg, ctx)
 
     def init_decode_state(self, batch: int, cache_len: int, dtype=None):
         return init_decode_state(self.cfg, batch, cache_len, dtype,
                                  device=self.device)
 
-    def decode_step(self, state, batch):
+    def decode_step(self, state, batch, ctx=None):
         """One-token decode: ``(logits, new_state)``."""
-        return decode_step(self, state, batch, self.cfg)
+        return decode_step(self, state, batch, self.cfg, ctx)
 
 
 def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> Model:
     """``cfg``'s model with weights drawn from a ``torch.Generator`` seeded
-    ``seed`` on ``device`` (the CUDA card unless ``"cpu"`` is given)."""
+    ``seed`` on ``device`` (the CUDA card unless ``"cpu"`` is given; on
+    ``"meta"`` the weights are shapes only, as for the dry run)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     return Model(cfg, Init(gen, dev))
 
 
 # ---------------------------------------------------------------------------
 # input embedding per family
 # ---------------------------------------------------------------------------
-def _embed_inputs(model, batch, cfg):
+def _embed_inputs(model, batch, cfg, ctx):
     if cfg.num_codebooks:
         if "frame_embeds" in batch:        # audio stub frontend
             return batch["frame_embeds"], None
@@ -128,16 +131,16 @@ def _embed_inputs(model, batch, cfg):
         x = torch.stack([books[k][codes[..., k]]
                          for k in range(cfg.num_codebooks)], dim=2)
         return x.sum(dim=2), None
-    x = emb.embed(batch["tokens"], model.embed)
+    x = emb.embed(batch["tokens"], model.embed, ctx)
     if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
         x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     return x, batch.get("mrope_pos")
 
 
-def _head(model, x, cfg):
+def _head(model, x, cfg, ctx):
     if cfg.num_codebooks:
         return torch.einsum("bsd,kvd->bskv", x, model.embed.heads)
-    return emb.logits(x, model.embed, tie=cfg.tie_embeddings)
+    return emb.logits(x, model.embed, ctx, tie=cfg.tie_embeddings)
 
 
 # ---------------------------------------------------------------------------
@@ -156,17 +159,24 @@ def _scan(body, x, aux, units, remat: bool):
     return x, aux
 
 
-def forward(model, batch, cfg: ModelConfig):
+def forward(model, batch, cfg: ModelConfig, ctx=None):
     """Full-sequence forward.  Returns (logits, aux_loss).
 
     With ``cfg.remat`` and grad enabled, the body of each reference scan
     step is rematerialised: one block (dense, moe, audio, vlm), one xLSTM
     unit (k-1 mLSTM + 1 sLSTM), one zamba2 unit (k Mamba2 blocks and the
-    shared attention/MLP), one lead Mamba2 block."""
-    x, mrope_pos = _embed_inputs(model, batch, cfg)
+    shared attention/MLP), one lead Mamba2 block.
+
+    With ``ctx`` (a ``parallel.ShardingCtx`` over a ``DeviceMesh``; the
+    parameters and the batch DTensors) the activations are redistributed
+    at the reference's ``with_sharding`` sites; the caller runs it under
+    ``implicit_replication()`` (the train step and the dry run do), so
+    that the positions and masks built here count as replicated."""
+    x, mrope_pos = _embed_inputs(model, batch, cfg, ctx)
     b, s, _ = x.shape
     pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
         b, s)
+    x = with_sharding(ctx, x, "batch", None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
     remat = cfg.remat and torch.is_grad_enabled()
@@ -174,8 +184,10 @@ def forward(model, batch, cfg: ModelConfig):
     if fam in ("dense", "audio", "vlm", "moe"):
         def make_body(use_moe):
             def body(h, a, blk):
+                # inter-layer residual: sequence-parallel when enabled
+                h = with_sharding(ctx, h, "batch", "seq", None)
                 h, _kv, aux_l = attn_mlp_forward(
-                    h, blk, cfg, pos, use_moe, mrope_pos=mrope_pos)
+                    h, blk, cfg, pos, use_moe, mrope_pos=mrope_pos, ctx=ctx)
                 return h, a + aux_l
             return body
         stacks = [(model.blocks, fam == "moe")]
@@ -214,7 +226,7 @@ def forward(model, batch, cfg: ModelConfig):
         raise ValueError(fam)
 
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
-    return _head(model, x, cfg), aux
+    return _head(model, x, cfg, ctx), aux
 
 
 # ---------------------------------------------------------------------------
@@ -280,11 +292,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     return state
 
 
-def decode_step(model, state, batch, cfg: ModelConfig):
+def decode_step(model, state, batch, cfg: ModelConfig, ctx=None):
     """One-token decode.  batch: {"tokens": [B,1]} (or codes for audio).
     Returns (logits, new_state); the KV caches are written in place and
-    shared by both states."""
-    x, mrope_pos = _embed_inputs(model, batch, cfg)
+    shared by both states.  ``ctx`` as for :func:`forward`."""
+    x, mrope_pos = _embed_inputs(model, batch, cfg, ctx)
     pos = state["pos"][:, None]
     cache_len = state["len"]
     new_state = dict(state)
@@ -352,7 +364,7 @@ def decode_step(model, state, batch, cfg: ModelConfig):
         raise ValueError(fam)
 
     x = rmsnorm(x, model.final_norm, cfg.norm_eps)
-    lg = _head(model, x, cfg)
+    lg = _head(model, x, cfg, ctx)
     new_state["pos"] = state["pos"] + 1
     new_state["len"] = state["len"] + 1
     return lg, new_state

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel.sharding import with_sharding
+
 from .layers import MLP, Init, Linear, mlp
 
 
@@ -47,7 +49,8 @@ class MoE(nn.Module):
                               dtype)
 
 
-def moe_layer(x: torch.Tensor, p, cfg) -> tuple[torch.Tensor, MoEStats]:
+def moe_layer(x: torch.Tensor, p, cfg,
+              ctx=None) -> tuple[torch.Tensor, MoEStats]:
     """x: [B, S, d] -> (out [B, S, d], stats)."""
     e = cfg.moe
     b, s, d = x.shape
@@ -70,7 +73,7 @@ def moe_layer(x: torch.Tensor, p, cfg) -> tuple[torch.Tensor, MoEStats]:
     dest = torch.where(keep, flat_e * cap + pos, n_e * cap)       # unique
 
     token_of = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((n_e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = xt.new_zeros((n_e * cap + 1, d))     # a DTensor for a DTensor x
     buf[dest] = xt[token_of]
     buf = buf[:-1].reshape(n_e, cap, d)
 
@@ -86,6 +89,7 @@ def moe_layer(x: torch.Tensor, p, cfg) -> tuple[torch.Tensor, MoEStats]:
     out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
     for j in range(k):
         out = out + weighted[:, j]
+    out = with_sharding(ctx, out, "batch", None)
 
     if e.shared_experts:
         out = out + mlp(xt, p.shared)

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.parallel.sharding import with_sharding
+
 from . import attention as attn
 from . import moe as moe_mod
 from .layers import MLP, Init, RMSNorm, mlp, rmsnorm
@@ -35,22 +37,28 @@ class AttnMLPBlock(nn.Module):
                     else MLP(init, cfg.d_model, cfg.d_ff, dtype))
 
 
-def attn_mlp_forward(x, blk, cfg, pos, use_moe: bool, mrope_pos=None):
-    """Pre-norm attn + (mlp|moe).  Returns (x, kv, aux_loss)."""
+def attn_mlp_forward(x, blk, cfg, pos, use_moe: bool, mrope_pos=None,
+                     ctx=None):
+    """Pre-norm attn + (mlp|moe).  Returns (x, kv, aux_loss).
+
+    With ``ctx`` both residual sums take the layer boundary's layout
+    (``("batch", "seq", None)``): left free, DTensor reduce-scatters the
+    sublayers' partial sums onto the sequence dim, and torch 2.11 cannot
+    then flatten (batch, seq) for the next matmul."""
     h = rmsnorm(x, blk.ln1, cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, kv = attn.mla_forward(h, blk.attn, cfg, pos)
     else:
         a, kv = attn.gqa_forward(h, blk.attn, cfg, pos, mrope_pos=mrope_pos)
-    x = x + a
+    x = with_sharding(ctx, x + a, "batch", "seq", None)
     h = rmsnorm(x, blk.ln2, cfg.norm_eps)
     if use_moe:
-        f, stats = moe_mod.moe_layer(h, blk.ffn, cfg)
+        f, stats = moe_mod.moe_layer(h, blk.ffn, cfg, ctx)
         aux = stats.aux_loss
     else:
         f = mlp(h, blk.ffn)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + f, kv, aux
+    return with_sharding(ctx, x + f, "batch", "seq", None), kv, aux
 
 
 def attn_mlp_decode(x, blk, cfg, cache, cache_len, pos, use_moe: bool,

@@ -16,8 +16,10 @@ Layout (one directory per step), the reference's:
   for a list item, ``.mu`` for a NamedTuple field); bfloat16 leaves are
   stored as their ``uint16`` bit patterns (npz has no bfloat16), and
   ``meta.json`` keeps the stored dtype.
-* Leaves are stored whole; resharding onto another layout waits for the
-  port of ``parallel/``.
+* Leaves are stored whole (a DTensor's full tensor); ``restore`` places
+  each on a mesh with ``distribute_tensor`` when ``shardings`` names one,
+  so restoring onto a different mesh (the elastic restore) is passing the
+  new shardings.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _is_namedtuple(x) -> bool:
@@ -64,7 +67,9 @@ def _treedef(tree) -> str:
 
 def _to_numpy(leaf) -> np.ndarray:
     """The leaf on the host (a view of a CPU tensor: ``save`` writes it
-    before it returns)."""
+    before it returns); a DTensor's full tensor."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach().to("cpu").contiguous()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.uint16)
@@ -116,18 +121,25 @@ def latest(ckpt_dir: str) -> int | None:
     return best
 
 
-def restore(ckpt_dir: str, step: int, like: Any, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, device=None,
+            shardings: Any = None) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors giving
     each leaf's shape and dtype).  Leaves go to ``device``, or else to the
-    device of their ``like`` leaf."""
+    device of their ``like`` leaf (a DTensor's local device).
+
+    ``shardings``: a tree shaped like ``like`` whose leaves are ``(mesh,
+    placements)`` (or None to keep a leaf whole): each such leaf becomes a
+    DTensor on ``mesh``, every rank taking its own slice of the stored
+    array.  Elastic restore onto a different mesh passes the new
+    shardings."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     if not os.path.exists(os.path.join(path, "COMMITTED")):
         raise FileNotFoundError(f"checkpoint {path} not committed")
     with np.load(os.path.join(path, "shard_00000.npz")) as data:
-        return _rebuild(like, (), data, device)
+        return _rebuild(like, (), data, device, shardings)
 
 
-def _rebuild(node, prefix, data, device):
+def _rebuild(node, prefix, data, device, shardings=None):
     kids = _children(node)
     if kids is None:
         key = "/".join(prefix)
@@ -139,9 +151,15 @@ def _rebuild(node, prefix, data, device):
         t = torch.from_numpy(arr)      # np.load gives a fresh array
         if arr.dtype == np.uint16 and like.dtype == torch.bfloat16:
             t = t.view(torch.bfloat16)
-        return t.to(device=device if device is not None else like.device,
-                    dtype=like.dtype)
-    vals = [_rebuild(v, prefix + (k,), data, device) for k, v in kids]
+        t = t.to(device=device if device is not None else like.device,
+                 dtype=like.dtype)
+        if shardings is None:
+            return t
+        mesh, placements = shardings
+        return distribute_tensor(t, mesh, placements, src_data_rank=None)
+    sub = dict(_children(shardings)) if shardings is not None else {}
+    vals = [_rebuild(v, prefix + (k,), data, device, sub.get(k))
+            for k, v in kids]
     if isinstance(node, dict):
         return dict(zip(node, vals))
     if _is_namedtuple(node):

@@ -285,6 +285,14 @@ def check_train_step(name):
     opt = adamw_init(params, tc.opt)
     opt, mt = make_train_step(pcfg, tc)(model, opt,
                                         to_torch(smoke_batch(cfg)))
+    assert_step_close(want, opt, dict(model.named_parameters()), mt)
+    return mt
+
+
+def assert_step_close(want, opt, params, mt):
+    """A port step's AdamW state, parameters (dicts of plain tensors) and
+    metrics against the reference step ``want``, within the bounds of the
+    module docstring."""
     assert int(opt.step) == want["step"] == 1
     for k, v in want["metrics"].items():
         np.testing.assert_allclose(float(mt[k]), v, rtol=METRIC_RTOL,
@@ -292,7 +300,7 @@ def check_train_step(name):
     lr = want["metrics"]["lr"]
     bounds = _step_bounds(want, lr)
     st = interop.adamw_state_to_reference(opt)
-    new_p = interop.lm_params_to_reference(model)
+    new_p = interop.lm_params_to_reference(params)
     for what, got, ref in (("mu", st.mu, want["mu"]),
                            ("nu", st.nu, want["nu"]),
                            ("p", new_p, want["new_params"])):
@@ -302,7 +310,6 @@ def check_train_step(name):
                 tol = tol + 4 * np.finfo(np.float32).eps * np.abs(w)
             bad = np.abs(g - w) > tol
             assert not bad.any(), (what, path, np.abs(g - w)[bad].max())
-    return mt
 
 
 def check_bf16_step(name):
