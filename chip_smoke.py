@@ -199,8 +199,10 @@ line; any failure exits non-zero:
    share;
 28. ``lm_dryrun``, last, after every timed phase: ``launch/dryrun.py``
    for qwen2-0.5b ``train_4k`` and ``decode_32k`` on the 16 x 16 mesh at
-   full depth, over a ``fake`` process group of 256 ranks in a subprocess
-   the script waits for: each cell ``ok``, its argument GiB per device,
+   full depth, and for mixtral-8x7b ``train_4k``, xlstm-1.3b
+   ``decode_32k`` and zamba2-7b ``train_4k`` at one unit of depth, over a
+   ``fake`` process group of 256 ranks in subprocesses started together
+   that the script waits for: each cell ``ok``, its argument GiB per device,
    collectives by kind, wire bytes and the roofline terms with the H100
    constants.  The LM phases launch none of the four kernels
    (``kernels.LAUNCHES`` unchanged).
@@ -3987,6 +3989,13 @@ def run_lm_train_archs(dev):
 # launch/{mesh,dryrun,hlo_analysis,roofline}.py)
 # ---------------------------------------------------------------------------
 LM_DRYRUN_SHAPES = ("train_4k", "decode_32k")
+# one unit of depth (dryrun.unit_layers) of the archs whose cells need the
+# sharded-only forms of the port README's "Sharding and the dry run":
+# GQA with 8 KV heads over 16 model ranks, xLSTM's 4 heads, zamba2's
+# chunked scan behind the pinned residual
+LM_DRYRUN_UNIT_CELLS = (("mixtral-8x7b", "train_4k"),
+                        ("xlstm-1.3b", "decode_32k"),
+                        ("zamba2-7b", "train_4k"))
 LM_DRYRUN_TIMEOUT_S = 300
 LM_SHARDED_STEPS = 2
 # test_torch_train_parity.py's bounds: adamw_update's new parameters and
@@ -3999,13 +4008,15 @@ LM_SHARDED_LOSS_RTOL = 1e-6
 def run_lm_dryrun(smi):
     """``lm_dryrun``: ``python -m repro_torch.launch.dryrun`` for
     qwen2-0.5b's ``train_4k`` and ``decode_32k`` on the 16 x 16 mesh, at
-    full depth, in a subprocess that traces on the CPU over a ``fake``
-    group of 256 ranks.  It runs after every timed phase and the script
-    waits for it, so that no host-timed number is taken beside it.  Prints
-    each cell: status, argument GiB per device (exact) and the op trace's
-    eager temp estimate, collective counts and bytes by kind, wire bytes,
-    and the roofline terms with the H100 constants of
-    ``launch/roofline.py``.  Fails unless both cells are ``ok``."""
+    full depth, and for the cells of ``LM_DRYRUN_UNIT_CELLS`` at one unit
+    of depth (``--depth unit``), each in a subprocess of its own, all
+    started together, that traces on the CPU over a ``fake`` group of 256
+    ranks.  It runs after every timed phase and the script waits for it,
+    so that no host-timed number is taken beside it.  Prints each cell:
+    status, argument GiB per device (exact) and the op trace's eager temp
+    estimate, collective counts and bytes by kind, wire bytes, and the
+    roofline terms with the H100 constants of ``launch/roofline.py``.
+    Fails unless every cell is ``ok``."""
     import shutil
     import tempfile
 
@@ -4014,56 +4025,69 @@ def run_lm_dryrun(smi):
     out = tempfile.mkdtemp(prefix="lm_dryrun_")
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
                OMP_NUM_THREADS="1")
+    jobs = [(LM_ARCH, LM_DRYRUN_SHAPES, "full")] + [
+        (arch, (shape,), "unit") for arch, shape in LM_DRYRUN_UNIT_CELLS]
     t0 = time.perf_counter()
+    procs = []
     try:
-        with open(os.path.join(out, "log.txt"), "w") as log:
-            proc = subprocess.Popen(
+        for i, (arch, shapes, depth) in enumerate(jobs):
+            log = open(os.path.join(out, f"log{i}.txt"), "w")
+            procs.append((log, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
-                 "--arch", LM_ARCH, "--shape", ",".join(LM_DRYRUN_SHAPES),
-                 "--mesh", "single", "--out", out], env=env, cwd=HERE,
-                stdout=log, stderr=subprocess.STDOUT)
+                 "--arch", arch, "--shape", ",".join(shapes),
+                 "--mesh", "single", "--depth", depth, "--out", out],
+                env=env, cwd=HERE, stdout=log, stderr=subprocess.STDOUT)))
+        deadline = time.monotonic() + LM_DRYRUN_TIMEOUT_S
+        for i, (log, proc) in enumerate(procs):
             try:
-                rc = proc.wait(timeout=LM_DRYRUN_TIMEOUT_S)
+                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
             except subprocess.TimeoutExpired:
+                raise AssertionError(
+                    f"lm_dryrun: {jobs[i][0]} did not finish in "
+                    f"{LM_DRYRUN_TIMEOUT_S} s") from None
+            log.close()
+            if rc != 0:
+                with open(log.name) as f:
+                    raise AssertionError(f"lm_dryrun {jobs[i][0]}: exit "
+                                         f"{rc}: {f.read()[-2000:]}")
+        seconds = time.perf_counter() - t0
+        for arch, shapes, depth in jobs:
+            for shape in shapes:
+                with open(os.path.join(out, f"{arch}__{shape}__single.json")) as f:
+                    r = json.load(f)
+                if r["status"] != "ok":
+                    raise AssertionError(f"lm_dryrun {arch} {shape}: "
+                                         f"{r['status']}: {r.get('error')}")
+                t = roofline.terms(r)
+                a, m = r["analysis"], r["memory"]
+                phase("lm_dryrun", arch=arch, cell=shape, mesh=r["mesh"],
+                      devices=r["devices"], depth=depth, layers=r["layers"],
+                      status=r["status"], knobs=r["knobs"],
+                      trace_s=r["lower_s"], compile_s=r["compile_s"],
+                      argument_gib_per_device=m["argument_size_in_bytes"] / 2**30,
+                      argument_bytes_per_device=m["argument_size_in_bytes"],
+                      temp_gib_per_device_estimate=m["temp_size_in_bytes"] / 2**30,
+                      collective_counts=a["collective_counts"],
+                      collective_bytes_by_kind=a["collective_bytes_by_kind"],
+                      wire_bytes=a["collective_wire_bytes"], flops=a["flops"],
+                      hbm_bytes=a["hbm_bytes"], ops=a["ops"],
+                      notes=a["notes"],
+                      roofline=dict(compute_ms=t["compute_s"] * 1e3,
+                                    memory_ms=t["memory_s"] * 1e3,
+                                    collective_ms=t["collective_s"] * 1e3,
+                                    dominant=t["dominant"],
+                                    useful_ratio=t["useful_ratio"],
+                                    roofline_frac=t["roofline_frac"]),
+                      hardware=dict(peak_flops=roofline.PEAK_FLOPS,
+                                    hbm_bw=roofline.HBM_BW,
+                                    link_bw=roofline.LINK_BW),
+                      subprocess_s=seconds, nvidia_smi=smi)
+    finally:
+        for log, proc in procs:
+            if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-                raise AssertionError(
-                    "lm_dryrun: the dry run did not finish in "
-                    f"{LM_DRYRUN_TIMEOUT_S} s") from None
-        seconds = time.perf_counter() - t0
-        with open(os.path.join(out, "log.txt")) as f:
-            log = f.read()
-        if rc != 0:
-            raise AssertionError(f"lm_dryrun: exit {rc}: {log[-2000:]}")
-        for shape in LM_DRYRUN_SHAPES:
-            with open(os.path.join(out, f"{LM_ARCH}__{shape}__single.json")) as f:
-                r = json.load(f)
-            if r["status"] != "ok":
-                raise AssertionError(f"lm_dryrun {shape}: {r['status']}: "
-                                     f"{r.get('error')}")
-            t = roofline.terms(r)
-            a, m = r["analysis"], r["memory"]
-            phase("lm_dryrun", arch=LM_ARCH, cell=shape, mesh=r["mesh"],
-                  devices=r["devices"], layers=r["layers"],
-                  status=r["status"], knobs=r["knobs"],
-                  trace_s=r["lower_s"], compile_s=r["compile_s"],
-                  argument_gib_per_device=m["argument_size_in_bytes"] / 2**30,
-                  temp_gib_per_device_estimate=m["temp_size_in_bytes"] / 2**30,
-                  collective_counts=a["collective_counts"],
-                  collective_bytes_by_kind=a["collective_bytes_by_kind"],
-                  wire_bytes=a["collective_wire_bytes"], flops=a["flops"],
-                  hbm_bytes=a["hbm_bytes"], ops=a["ops"],
-                  roofline=dict(compute_ms=t["compute_s"] * 1e3,
-                                memory_ms=t["memory_s"] * 1e3,
-                                collective_ms=t["collective_s"] * 1e3,
-                                dominant=t["dominant"],
-                                useful_ratio=t["useful_ratio"],
-                                roofline_frac=t["roofline_frac"]),
-                  hardware=dict(peak_flops=roofline.PEAK_FLOPS,
-                                hbm_bw=roofline.HBM_BW,
-                                link_bw=roofline.LINK_BW),
-                  subprocess_s=seconds, nvidia_smi=smi)
-    finally:
+            log.close()
         shutil.rmtree(out, ignore_errors=True)
 
 

@@ -161,6 +161,94 @@ LM_STATE_STACKED = {"cache": 1, "dense_cache": 1, "attn_cache": 1,
                     "slstm": 1, "lead": 1, "mlstm": 2, "mamba": 2}
 
 
+# A leaf whose stacked layer axes the reference shards over a mesh axis
+# (a qkv bias under fsdp, parallel.param_specs.tree_specs) is held whole,
+# stacked as the reference stacks it, under this prefix and its key path:
+# ``stacked.blocks.attn.wq.b`` in place of ``blocks.<i>.attn.wq.b``.
+STACKED = "stacked."
+
+
+def lm_split_name(name: str) -> tuple[tuple, tuple]:
+    """A port parameter name -> (the reference's key path, its layer
+    indices): ``blocks.3.attn.wq.b`` -> ``(('blocks', 'attn', 'wq',
+    'b'), (3,))``; a stacked leaf's indices are ``()``."""
+    if name.startswith(STACKED):
+        return tuple(name[len(STACKED):].split(".")), ()
+    parts = name.split(".")
+    depth = LM_PARAM_STACKED.get(parts[0], 0)
+    return ((parts[0], *parts[1 + depth:]),
+            tuple(int(i) for i in parts[1: 1 + depth]))
+
+
+def lm_reference_key(path: tuple) -> str:
+    """A key path as the reference's ``tree_flatten_with_path`` prints
+    it: ``['blocks']/['attn']/['wk']/['b']``."""
+    return "/".join(f"[{q!r}]" for q in path)
+
+
+def lm_stacked_name(path: tuple) -> str:
+    return STACKED + ".".join(path)
+
+
+def lm_layer_name(path: tuple, idx: tuple) -> str:
+    return ".".join((path[0], *map(str, idx), *path[1:]))
+
+
+def _stack_nested_with(stack, items):
+    """``{(i, j, ...): leaf}`` -> one leaf stacked (by ``stack``) on the
+    index axes."""
+    firsts = sorted({idx[0] for idx in items})
+    if len(next(iter(items))) == 1:
+        return stack([items[(i,)] for i in firsts])
+    return stack([_stack_nested_with(stack, {
+        idx[1:]: a for idx, a in items.items() if idx[0] == i})
+        for i in firsts])
+
+
+def lm_stack(tree: dict, names) -> dict:
+    """``tree`` (port parameter names -> tensors, one per layer) in the
+    layout of ``names``: each stacked name's per-layer leaves stacked on
+    its leading axes, at the place of its first layer; the other leaves
+    as they are."""
+    want = set(names)
+    if set(tree) == want:
+        return dict(tree)
+    groups: dict = {}
+    for k, v in tree.items():
+        path, idx = lm_split_name(k)
+        groups.setdefault(path, {})[idx] = v
+    out = {}
+    for k, v in tree.items():
+        path, _ = lm_split_name(k)
+        s = lm_stacked_name(path)
+        if k in want or s not in want:
+            out[k] = v
+        elif s not in out:
+            out[s] = _stack_nested_with(torch.stack, groups[path])
+    if set(out) != want:
+        raise KeyError(f"cannot lay out {sorted(set(out) ^ want)[:4]}")
+    return out
+
+
+def lm_unstack(tree: dict) -> dict:
+    """The inverse of :func:`lm_stack`: each stacked leaf split into its
+    per-layer leaves (a DTensor's full tensor first)."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for k, v in tree.items():
+        if not k.startswith(STACKED):
+            out[k] = v
+            continue
+        path, _ = lm_split_name(k)
+        if isinstance(v, DTensor):
+            v = v.full_tensor()
+        depth = LM_PARAM_STACKED.get(path[0], 0)
+        for idx in np.ndindex(*v.shape[:depth]):
+            out[lm_layer_name(path, idx)] = v[idx]
+    return out
+
+
 def _paths(tree, prefix=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -188,8 +276,17 @@ def lm_params_from_reference(model, tree):
     """Load the reference's parameter tree (``init_params``'s dict, numpy
     leaves) into the port's ``models.Model`` of the same config, in place;
     returns ``model``.  Every one of the model's parameters must be
-    matched."""
-    model.load_state_dict(lm_tree_from_reference(tree, "cpu"), strict=True)
+    matched; stacked leaves load whole, and DTensor parameters take
+    their slice of each leaf."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    params = dict(model.named_parameters())
+    state = lm_stack(lm_tree_from_reference(tree, "cpu"), params)
+    for k, p in params.items():
+        if isinstance(p, DTensor):
+            state[k] = distribute_tensor(state[k], p.device_mesh,
+                                         p.placements, src_data_rank=None)
+    model.load_state_dict(state, strict=True)
     return model
 
 
@@ -200,12 +297,13 @@ def lm_params_to_reference(params):
     on the reference's leading axes."""
     if hasattr(params, "named_parameters"):
         params = dict(params.named_parameters())
+    from torch.distributed.tensor import DTensor
+
     groups: dict = {}
     for name, t in params.items():
-        parts = name.split(".")
-        depth = LM_PARAM_STACKED.get(parts[0], 0)
-        path = (parts[0], *parts[1 + depth:])
-        idx = tuple(int(i) for i in parts[1: 1 + depth])
+        path, idx = lm_split_name(name)
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         groups.setdefault(path, {})[idx] = to_numpy(t)
     tree: dict = {}
     for path, items in groups.items():
@@ -222,20 +320,17 @@ def lm_reference_shapes(params) -> dict:
     ``(path, shape)`` of the reference leaf each is a slice of: its key
     path as the reference's ``tree_flatten_with_path`` prints it
     (``['blocks']/['attn']/['wk']/['b']``) and its stacked shape, the
-    layer counts (taken from the names) leading."""
+    layer counts (taken from the names) leading; a stacked leaf's shape
+    is its own."""
     counts: dict = {}
     split = {}
     for name, leaf in params.items():
-        parts = name.split(".")
-        depth = LM_PARAM_STACKED.get(parts[0], 0)
-        idx = tuple(int(i) for i in parts[1: 1 + depth])
-        path = (parts[0], *parts[1 + depth:])
+        path, idx = lm_split_name(name)
         shape = tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
         split[name] = (path, idx, shape)
-        n = counts.setdefault(path, [0] * depth)
+        n = counts.setdefault(path, [0] * len(idx))
         counts[path] = [max(a, i + 1) for a, i in zip(n, idx)]
-    return {name: ("/".join(f"[{q!r}]" for q in path),
-                   (*counts[path], *shape))
+    return {name: (lm_reference_key(path), (*counts[path], *shape))
             for name, (path, _, shape) in split.items()}
 
 
@@ -246,13 +341,11 @@ def lm_specs_to_reference(specs: dict) -> dict:
     have the same spec).  Leaves are plain tuples."""
     tree: dict = {}
     for name, spec in specs.items():
-        parts = name.split(".")
-        depth = LM_PARAM_STACKED.get(parts[0], 0)
-        path = (parts[0], *parts[1 + depth:])
+        path, idx = lm_split_name(name)
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        full = (None,) * depth + tuple(spec)
+        full = (None,) * len(idx) + tuple(spec)
         if node.setdefault(path[-1], full) != full:
             raise ValueError(f"{name}: {full} differs from another layer's "
                              f"{node[path[-1]]}")
@@ -261,11 +354,7 @@ def lm_specs_to_reference(specs: dict) -> dict:
 
 def _stack_nested(items):
     """``{(i, j, ...): array}`` -> one array stacked on the index axes."""
-    firsts = sorted({idx[0] for idx in items})
-    if len(next(iter(items))) == 1:
-        return np.stack([items[(i,)] for i in firsts])
-    return np.stack([_stack_nested({idx[1:]: a for idx, a in items.items()
-                                    if idx[0] == i}) for i in firsts])
+    return _stack_nested_with(np.stack, items)
 
 
 def adamw_state_from_reference(model, st):
@@ -274,9 +363,10 @@ def adamw_state_from_reference(model, st):
     ``model``'s parameter names, on ``model``'s device."""
     from repro_torch.training.optimizer import AdamWState
     dev = model.device
-    mu = lm_tree_from_reference(st.mu, dev)
-    nu = lm_tree_from_reference(st.nu, dev)
-    names = {k for k, _ in model.named_parameters()}
+    names = [k for k, _ in model.named_parameters()]
+    mu = lm_stack(lm_tree_from_reference(st.mu, dev), names)
+    nu = lm_stack(lm_tree_from_reference(st.nu, dev), names)
+    names = set(names)
     if set(mu) != names or set(nu) != names:
         raise KeyError("AdamW state does not match the model's parameters: "
                        f"{sorted(set(mu) ^ names)[:4]}")

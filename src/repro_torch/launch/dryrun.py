@@ -283,17 +283,92 @@ def unit_layers(cfg: ModelConfig) -> int:
 # cell runner
 # ---------------------------------------------------------------------------
 def _trace(fn, n_devices, resident):
-    """Run ``fn`` under the op trace and ``CommDebugMode``; returns (the
-    ``OpTrace``, comm counts by op, seconds)."""
+    """Run ``fn`` under the op trace and ``CommDebugMode``, a long
+    recurrence counted by its trip count (``hlo_analysis.by_trip_count``);
+    returns (the ``OpTrace``, comm counts by op, seconds)."""
     from torch.distributed.tensor.debug import CommDebugMode
 
+    def once():
+        with CommDebugMode() as comm, hlo_analysis.OpTrace(
+                n_devices, resident) as tr:
+            fn()
+        return tr, {str(k): v for k, v in comm.get_comm_counts().items()}
+
     t0 = time.perf_counter()
-    with CommDebugMode() as comm, hlo_analysis.OpTrace(
-            n_devices, resident) as tr:
-        fn()
-    secs = time.perf_counter() - t0
-    counts = {str(k): v for k, v in comm.get_comm_counts().items()}
-    return tr, counts, secs
+    tr, counts = hlo_analysis.by_trip_count(once)
+    return tr, counts, time.perf_counter() - t0
+
+
+def _cell(cfg: ModelConfig, shape: ShapeConfig, knobs: dict, mesh, ctx):
+    """One cell's arguments as DTensors on ``mesh`` (the model's
+    parameters, the batch, the AdamW state or the decode state) and the
+    step to trace: ``(model, args, run)``."""
+    model = build_model(cfg, device="meta")
+    params = dict(model.named_parameters())
+    p_specs = pspec.tree_specs(params, cfg, ctx, fsdp=knobs["fsdp"])
+    batch = input_specs(cfg, shape)
+    b_specs = batch_shardings(batch, cfg, ctx)
+    distribute_parameters(model, p_specs, mesh)
+    batch = distribute(batch, b_specs, mesh)
+    args: list = [model, batch]
+
+    if shape.kind == "train":
+        tc = TrainConfig(
+            microbatches=knobs["microbatches"],
+            accum_dtype=knobs["accum_dtype"],
+            opt=AdamWConfig(state_dtype=knobs["opt_dtype"]))
+        o_specs = pspec.opt_state_specs(p_specs, params, ctx)
+        opt = adamw_init(params, tc.opt)
+        opt = AdamWState(step=opt.step,
+                         mu=distribute(opt.mu, o_specs.mu, mesh),
+                         nu=distribute(opt.nu, o_specs.nu, mesh))
+        args.append(opt)
+        # gradient accumulators live ZeRO-sharded (per-microbatch
+        # reduce-scatter instead of all-reduce for replicated params)
+        step = make_train_step(cfg, tc, ctx, accum_shardings={
+            k: placements(s, mesh) for k, s in o_specs.mu.items()})
+
+        def run():
+            step(model, opt, batch)
+    elif shape.kind == "prefill":
+        def run():
+            with torch.no_grad(), _replicated():
+                model_mod.forward(model, batch, cfg, ctx)
+    else:  # decode
+        state = model_mod.init_decode_state(
+            cfg, shape.global_batch, shape.seq_len, device="meta")
+        state = distribute(state, decode_state_specs(state, cfg, ctx),
+                           mesh)
+        args.append(state)
+
+        def run():
+            with torch.no_grad(), _replicated():
+                model_mod.decode_step(model, state, batch, cfg, ctx)
+    return model, args, run
+
+
+def _arg_bytes(model, args) -> int:
+    return local_bytes([dict(model.named_parameters()), *args[1:]])
+
+
+def _cell_config(arch: str, layers: int | None):
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg
+
+
+def argument_bytes(arch: str, shape_name: str, multi_pod: bool,
+                   layers: int | None = None) -> int:
+    """A cell's ``argument_size_in_bytes`` (the local shards of its
+    arguments on one device), without tracing the step."""
+    cfg, shape = _cell_config(arch, layers), SHAPES[shape_name]
+    knobs = cell_knobs(arch, shape)
+    with fake_world(512 if multi_pod else 256):
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        ctx = make_ctx(mesh, sequence_parallel=knobs["sequence_parallel"])
+        model, args, _ = _cell(cfg, shape, knobs, mesh, ctx)
+        return _arg_bytes(model, args)
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -301,9 +376,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                layers: int | None = None) -> dict:
     """One cell's record.  ``layers`` cuts the depth (the widths stay the
     arch's), for a quick check; the record says so."""
-    cfg = get_arch(arch)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    cfg = _cell_config(arch, layers)
     shape = SHAPES[shape_name]
     if shape_name == "long_500k" and arch not in LONG_CONTEXT_OK:
         return {"arch": arch, "shape": shape_name, "status": "skipped",
@@ -315,48 +388,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         ctx = make_ctx(mesh, sequence_parallel=knobs["sequence_parallel"])
         t0 = time.perf_counter()
-        model = build_model(cfg, device="meta")
-        params = dict(model.named_parameters())
-        p_specs = pspec.tree_specs(params, cfg, ctx, fsdp=knobs["fsdp"])
-        batch = input_specs(cfg, shape)
-        b_specs = batch_shardings(batch, cfg, ctx)
-        distribute_parameters(model, p_specs, mesh)
-        batch = distribute(batch, b_specs, mesh)
-        args: list = [model, batch]
-
-        if shape.kind == "train":
-            tc = TrainConfig(
-                microbatches=knobs["microbatches"],
-                accum_dtype=knobs["accum_dtype"],
-                opt=AdamWConfig(state_dtype=knobs["opt_dtype"]))
-            o_specs = pspec.opt_state_specs(p_specs, params, ctx)
-            opt = adamw_init(params, tc.opt)
-            opt = AdamWState(step=opt.step,
-                             mu=distribute(opt.mu, o_specs.mu, mesh),
-                             nu=distribute(opt.nu, o_specs.nu, mesh))
-            args.append(opt)
-            # gradient accumulators live ZeRO-sharded (per-microbatch
-            # reduce-scatter instead of all-reduce for replicated params)
-            step = make_train_step(cfg, tc, ctx, accum_shardings={
-                k: placements(s, mesh) for k, s in o_specs.mu.items()})
-
-            def run():
-                step(model, opt, batch)
-        elif shape.kind == "prefill":
-            def run():
-                with torch.no_grad(), _replicated():
-                    model_mod.forward(model, batch, cfg, ctx)
-        else:  # decode
-            state = model_mod.init_decode_state(
-                cfg, shape.global_batch, shape.seq_len, device="meta")
-            state = distribute(state, decode_state_specs(state, cfg, ctx),
-                               mesh)
-            args.append(state)
-
-            def run():
-                with torch.no_grad(), _replicated():
-                    model_mod.decode_step(model, state, batch, cfg, ctx)
-        arg_bytes = local_bytes([dict(model.named_parameters()), *args[1:]])
+        model, args, run = _cell(cfg, shape, knobs, mesh, ctx)
+        arg_bytes = _arg_bytes(model, args)
         setup_s = time.perf_counter() - t0
         tr, comm, trace_s = _trace(run, n_dev, args)
 

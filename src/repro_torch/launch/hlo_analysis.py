@@ -26,7 +26,13 @@ shapes) and are not counted: trace on meta or real tensors.  The reference's rul
     DTensor's ``shard_dim_alltoall``, each group's size read from its
     arguments.
 
-A Python loop is unrolled in the trace, so trip counts need no parsing.
+A Python loop is unrolled in the trace, so trip counts need no parsing,
+but a long recurrence (the sLSTM's time loop: 32,768 steps of ops on
+DTensors for ``prefill_32k``) is slow to trace.  Its loop takes its
+steps from :func:`recurrence`, and :func:`by_trip_count` traces a
+stretch of it and counts the remaining steps, of the same ops on the
+same shapes, by the trip count, as the reference's analyzer counts a
+while body times its known trip count.
 :class:`OpTrace` also follows the bytes of live local storages (each
 op's new storages, released when the last tensor on them is, saved
 autograd tensors included) and keeps their peak: the eager counterpart
@@ -38,7 +44,7 @@ inserts none.
 from __future__ import annotations
 
 import weakref
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
@@ -240,3 +246,77 @@ def top_contributors(fn, *args, n: int = 12, n_devices: int = 1, **kwargs):
     colls.sort(key=lambda r: -r["total"])
     hbms.sort(key=lambda r: -r["total"])
     return colls[:n], hbms[:n]
+
+
+# ---------------------------------------------------------------------------
+# recurrences: a stretch traced, the other steps counted by the trip count
+# ---------------------------------------------------------------------------
+_STRETCH: dict | None = None      # set inside by_trip_count
+
+
+def recurrence(n: int) -> range:
+    """The steps of a time loop whose steps run the same ops on the same
+    shapes: ``range(n)``.  Inside :func:`by_trip_count` only the first
+    steps of a stretch run, and ``n`` is noted."""
+    if _STRETCH is None:
+        return range(n)
+    _STRETCH["trips"].add(n)
+    return range(min(n, _STRETCH["steps"]))
+
+
+def _extrapolate(a, b, extra: int):
+    """``a + extra * (b - a)`` of two traces (an :class:`OpTrace` and a
+    dict of counts) that differ by one step of a recurrence."""
+    lin = lambda x, y: x + extra * (y - x)   # noqa: E731
+
+    def lin_dict(x, y):
+        return {k: lin(x.get(k, 0), y.get(k, 0)) for k in {**x, **y}}
+
+    (ta, ca), (tb, cb) = a, b
+    out = OpTrace(ta.n_devices)
+    for f in fields(Analysis):
+        x, y = getattr(ta.analysis, f.name), getattr(tb.analysis, f.name)
+        setattr(out.analysis, f.name, lin_dict(x, y) if isinstance(x, dict)
+                else list(y) if isinstance(x, list) else lin(x, y))
+    out.records = {k: [lin(ta.records.get(k, (0,))[0], rec[0]), rec[1]]
+                   for k, rec in tb.records.items()}
+    out.peak_bytes = max(ta.peak_bytes, tb.peak_bytes)
+    return out, lin_dict(ca, cb)
+
+
+def by_trip_count(trace, k: int = 2):
+    """``trace()`` -> ``(OpTrace, {op: count})`` with every
+    :func:`recurrence` cut to its first ``k + 1`` steps.  When a
+    recurrence has more, ``trace()`` runs again with ``k`` and with ``k +
+    1`` steps, and each count and byte total is the ``k``-step trace's
+    plus ``n - k`` times the step between the two: exact when steps 2 to
+    ``n - 1`` run the same ops (the first step's backward and the last's
+    differ: no gradient flows into the initial state or out of the final
+    one), as ``tests/test_torch_dryrun_archs.py`` holds against a full
+    trace.  The first run warms DTensor's caches (on first sight of an
+    op and layout it runs a few small ops of its own, which the trace
+    counts), so the two compared runs are alike.  The live-storage peak
+    is the stretch's, a lower bound (the steps not run save no
+    activations).  A note in the analysis says so.  Every recurrence of
+    one trace must have the same trip count."""
+    def run(steps):
+        global _STRETCH
+        _STRETCH = {"steps": steps, "trips": set()}
+        try:
+            out = trace()
+        finally:
+            trips, _STRETCH = _STRETCH["trips"], None
+        return out, trips
+
+    first, trips = run(k + 1)
+    if max(trips, default=0) <= k + 1:
+        return first
+    if len(trips) > 1:
+        raise ValueError(f"recurrences of trip counts {sorted(trips)}")
+    n = trips.pop()
+    tr, counts = _extrapolate(run(k)[0], run(k + 1)[0], n - k)
+    tr.analysis.notes.append(
+        f"recurrence: steps 1-{k} and 1-{k + 1} of {n} traced; counts and "
+        f"bytes extrapolated to {n} steps by the trip count; the temp peak "
+        f"is the stretch's, a lower bound")
+    return tr, counts

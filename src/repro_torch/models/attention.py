@@ -15,8 +15,8 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from .layers import (Init, Linear, apply_mrope, apply_rope, linear,
-                     sharded_inside)
+from .layers import (Init, Linear, apply_mrope, apply_rope, einsum,
+                     gather_dim, linear, sharded_inside, split_uneven)
 
 NEG_INF = -1e30
 
@@ -64,7 +64,7 @@ def chunked_attention(
             kb = kb.repeat_interleave(g, dim=2)
             vb = vb.repeat_interleave(g, dim=2)
         kv_pos = c * kv_chunk + torch.arange(kv_chunk, device=dev)  # [ckv]
-        sc = torch.einsum("bshd,bthd->bhst", qs, kb).float()
+        sc = einsum("bshd,bthd->bhst", qs, kb).float()
         if causal:
             mask = kv_pos[None, :] <= q_pos[:, None]
         else:
@@ -77,7 +77,7 @@ def chunked_attention(
         p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        pv = torch.einsum("bhst,bthd->bshd", p.to(vb.dtype), vb)
+        pv = einsum("bhst,bthd->bshd", p.to(vb.dtype), vb)
         acc = acc * corr.transpose(1, 2)[..., None].to(acc.dtype) + pv
         m = m_new
     denom = torch.clamp_min(l, 1e-20).transpose(1, 2)[..., None]
@@ -98,12 +98,15 @@ def decode_attention(
     t, hkv = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv
     scale = scale if scale is not None else dh ** -0.5
-    qg = (q * scale).reshape(b, 1, hkv, g, dh)
-    sc = torch.einsum("bskgd,btkd->bkgst", qg, k_cache).float()
+    qs = q * scale
+    if split_uneven(qs, 2, hkv):
+        qs = gather_dim(qs, 2)     # the (hkv, g) split of sharded heads
+    qg = qs.reshape(b, 1, hkv, g, dh)
+    sc = einsum("bskgd,btkd->bkgst", qg, k_cache).float()
     mask = torch.arange(t, device=q.device)[None, :] < cache_len[:, None]
     sc = torch.where(mask[:, None, None, None, :], sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", p.to(v_cache.dtype), v_cache)
+    out = einsum("bkgst,btkd->bskgd", p.to(v_cache.dtype), v_cache)
     return out.reshape(b, 1, h, v_cache.shape[-1])
 
 
@@ -139,7 +142,7 @@ def _out_proj(o, p):
         # the einsum merges (H, dh); sum the heads instead (layers.linear)
         return sum(torch.einsum("bsd,md->bsm", o[:, :, i], w[:, i])
                    for i in range(w.shape[1]))
-    return torch.einsum("bshd,mhd->bsm", o, w)
+    return einsum("bshd,mhd->bsm", o, w)
 
 
 def gqa_forward(x, p, cfg, pos, *, mrope_pos=None):

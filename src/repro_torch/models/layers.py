@@ -96,6 +96,75 @@ def sharded_inside(w: torch.Tensor, first: int) -> bool:
         p.is_shard() and p.dim >= first for p in w.placements)
 
 
+def split_uneven(x: torch.Tensor, dim: int, outer: int) -> bool:
+    """Whether ``x`` is a DTensor sharding ``dim`` over a mesh dim whose
+    size does not divide ``outer``: splitting ``dim`` into ``(outer,
+    dim // outer)`` is then a view DTensor refuses."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor) and any(
+        p.is_shard(dim) and outer % x.device_mesh.size(i)
+        for i, p in enumerate(x.placements))
+
+
+def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *xs)``; on DTensors, per rank on local shards.
+
+    Each mesh dim keeps the index that the first operand sharded on it
+    shards, when it splits that index evenly after the mesh dims before
+    it: every operand holding that index is resharded to it (a local
+    slice where it was replicated) and the others replicated, so the
+    contraction runs per rank and the result is sharded on that index,
+    or a partial sum where ``eq`` contracts it.  A partial operand is
+    reduced first, and a mesh dim that shards no index, or not evenly,
+    is replicated.  DTensor's own
+    einsum flattens the batch indices for ``bmm``, which torch 2.11
+    refuses when a second one is sharded (attention's batch and heads,
+    the SSD scan's batch and heads)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not xs or not all(isinstance(x, DTensor) for x in xs):
+        return torch.einsum(eq, *xs)
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    mesh = xs[0].device_mesh
+    # each index's extent left to split by the mesh dims after this one
+    left = {c: n for spec, x in zip(ins, xs) for c, n in zip(spec, x.shape)}
+    target = [[Replicate()] * mesh.ndim for _ in xs]
+    out_pl, keeps = [], []
+    for i, n in enumerate(mesh.shape):
+        keep = next((spec[x.placements[i].dim] for spec, x in zip(ins, xs)
+                     if x.placements[i].is_shard()), None)
+        if keep is not None and left[keep] % n:
+            keep = None
+        if keep is not None:
+            left[keep] //= n
+        keeps.append(keep)
+        for j, spec in enumerate(ins):
+            if keep is not None and keep in spec:
+                target[j][i] = Shard(spec.index(keep))
+        out_pl.append(Replicate() if keep is None else
+                      Shard(out.index(keep)) if keep in out else Partial())
+    xs = [x if list(x.placements) == t else x.redistribute(mesh, t)
+          for x, t in zip(xs, target)]
+    # an operand replicated over a mesh dim that splits the contraction
+    # gets a partial sum of its gradient on each rank
+    grads = [[Partial() if t[i].is_replicate() and p is not None else t[i]
+              for i, p in enumerate(keeps)] for t in target]
+    local = torch.einsum(eq, *(x.to_local(grad_placements=g)
+                              for x, g in zip(xs, grads)))
+    return DTensor.from_local(local, mesh, out_pl, run_check=False)
+
+
+def gather_dim(x, dim: int):
+    """The DTensor ``x`` with ``dim`` whole: every mesh dim that shards
+    it replicated (an all-gather)."""
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p.is_shard(dim) else p for p in x.placements])
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------

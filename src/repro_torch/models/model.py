@@ -181,6 +181,13 @@ def forward(model, batch, cfg: ModelConfig, ctx=None):
     fam = cfg.family
     remat = cfg.remat and torch.is_grad_enabled()
 
+    def residual(h, y):
+        # the residual sum in the layer boundary's layout, as
+        # transformer.attn_mlp_forward's: left free, DTensor reduce-
+        # scatters a block's partial sum onto the sequence dim, which the
+        # recurrences then cut into chunks or steps
+        return with_sharding(ctx, h + y, "batch", "seq", None)
+
     if fam in ("dense", "audio", "vlm", "moe"):
         def make_body(use_moe):
             def body(h, a, blk):
@@ -200,24 +207,25 @@ def forward(model, batch, cfg: ModelConfig, ctx=None):
         def body(h, a, unit):
             mblocks, sblock = unit
             for blk in mblocks:
-                h = h + xlstm_mod.mlstm_forward(h, blk, cfg)[0]
-            return h + xlstm_mod.slstm_forward(h, sblock, cfg)[0], a
+                h = residual(h, xlstm_mod.mlstm_forward(h, blk, cfg)[0])
+            return residual(h, xlstm_mod.slstm_forward(h, sblock, cfg)[0]), a
         x, aux = _scan(body, x, aux, zip(model.mlstm, model.slstm), remat)
 
     elif fam == "hybrid":  # zamba2 units, shared attention block
         def lead_body(h, a, blk):
-            return h + ssm_mod.mamba2_forward(h, blk, cfg)[0], a
+            return residual(h, ssm_mod.mamba2_forward(h, blk, cfg)[0]), a
 
         def body(h, a, mblocks):
             for i, blk in enumerate(mblocks):
                 if i == len(mblocks) - 1:  # shared full-attention (+MLP)
-                    h = h + attn_mod.gqa_forward(
+                    h = residual(h, attn_mod.gqa_forward(
                         rmsnorm(h, model.shared_ln, cfg.norm_eps),
-                        model.shared_attn, cfg, pos)[0]
+                        model.shared_attn, cfg, pos)[0])
                     if hasattr(model, "shared_mlp"):
-                        h = h + mlp(rmsnorm(h, model.shared_ln2,
-                                            cfg.norm_eps), model.shared_mlp)
-                h = h + ssm_mod.mamba2_forward(h, blk, cfg)[0]
+                        h = residual(h, mlp(rmsnorm(
+                            h, model.shared_ln2, cfg.norm_eps),
+                            model.shared_mlp))
+                h = residual(h, ssm_mod.mamba2_forward(h, blk, cfg)[0])
             return h, a
         x, aux = _scan(lead_body, x, aux, getattr(model, "mamba_lead", ()),
                        remat)

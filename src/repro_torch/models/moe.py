@@ -24,7 +24,7 @@ from torch import nn
 
 from repro_torch.parallel.sharding import with_sharding
 
-from .layers import MLP, Init, Linear, mlp
+from .layers import MLP, Init, Linear, einsum, mlp
 
 
 class MoEStats(NamedTuple):
@@ -47,6 +47,24 @@ class MoE(nn.Module):
         if e.shared_experts:
             self.shared = MLP(init, d, e.d_ff_expert * e.shared_experts,
                               dtype)
+
+
+def _bucket_rows(rows: torch.Tensor, dest: torch.Tensor, n: int):
+    """``n`` zero rows with ``rows[i]`` written at ``dest[i]`` (the
+    bucket scatter).  On DTensors it runs on every rank on the whole,
+    replicated operands (torch 2.11's DTensor has no strategy for the
+    in-place ``index_put_``), and the buckets come out replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(rows, DTensor):
+        buf = rows.new_zeros((n, rows.shape[1]))
+        buf[dest] = rows
+        return buf
+    mesh, rep = rows.device_mesh, [Replicate()] * rows.device_mesh.ndim
+    local = rows.redistribute(mesh, rep).to_local()
+    buf = local.new_zeros((n, local.shape[1]))
+    buf[dest.redistribute(mesh, rep).to_local()] = local
+    return DTensor.from_local(buf, mesh, rep, run_check=False)
 
 
 def moe_layer(x: torch.Tensor, p, cfg,
@@ -73,14 +91,13 @@ def moe_layer(x: torch.Tensor, p, cfg,
     dest = torch.where(keep, flat_e * cap + pos, n_e * cap)       # unique
 
     token_of = torch.arange(t, device=x.device).repeat_interleave(k)
-    buf = xt.new_zeros((n_e * cap + 1, d))     # a DTensor for a DTensor x
-    buf[dest] = xt[token_of]
+    buf = _bucket_rows(xt[token_of], dest, n_e * cap + 1)
     buf = buf[:-1].reshape(n_e, cap, d)
 
     # expert FFN (einsum over the expert dim)
-    h = torch.einsum("ecd,edf->ecf", buf, p.w_gate)
-    u = torch.einsum("ecd,edf->ecf", buf, p.w_up)
-    y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, p.w_down)
+    h = einsum("ecd,edf->ecf", buf, p.w_gate)
+    u = einsum("ecd,edf->ecf", buf, p.w_up)
+    y = einsum("ecf,efd->ecd", F.silu(h) * u, p.w_down)
     y = torch.cat([y.reshape(n_e * cap, d), y.new_zeros((1, d))])
 
     gathered = y[dest]                                            # [T*k, d]

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Init, Linear, linear
+from .layers import Init, Linear, einsum, linear
 
 
 class SSMState(NamedTuple):
@@ -127,18 +127,18 @@ def mamba2_forward(x, p, cfg, state: SSMState | None = None):
         # the exp (the upper triangle can overflow)
         diff = cum[:, :, None, :] - cum[:, None, :, :]            # [B,i,j,H]
         l_mat = torch.exp(torch.where(causal[None, :, :, None], diff, -1e30))
-        cb = torch.einsum("bin,bjn->bij", ck, bk).float()         # [B,i,j]
+        cb = einsum("bin,bjn->bij", ck, bk).float()               # [B,i,j]
         w = cb[..., None] * l_mat * dtk[:, None, :, :]            # [B,i,j,H]
-        y_intra = torch.einsum("bijh,bjhd->bihd", w, xk.float())
+        y_intra = einsum("bijh,bjhd->bihd", w, xk.float())
         # inter-chunk: contribution of the carried state
-        y_inter = torch.einsum("bin,bhdn->bihd", ck.float(), h) \
+        y_inter = einsum("bin,bhdn->bihd", ck.float(), h) \
             * torch.exp(cum)[..., None]
         # state update: h' = exp(sum da) h + sum_j exp(cum_last - cum_j)
         # dt_j B_j x_j
         decay_all = torch.exp(cum[:, -1:, :])                     # [B,1,H]
         rev = torch.exp(cum[:, -1:, :] - cum) * dtk               # [B,ch,H]
         xw = xk.float() * rev[..., None]                          # [B,ch,H,dh]
-        dh_new = torch.einsum("bjn,bjhd->bhdn", bk.float(), xw)
+        dh_new = einsum("bjn,bjhd->bhdn", bk.float(), xw)
         h = h * decay_all[:, 0, :, None, None] + dh_new
         ys.append(y_intra + y_inter)
 
@@ -171,7 +171,7 @@ def mamba2_decode(x, p, cfg, state: SSMState):
     decay = torch.exp(dt * a)                                    # [B,H]
     h_new = (state.h * decay[:, :, None, None]
              + dt[:, :, None, None] * xh[..., None] * bvec[:, None, None, :])
-    y = torch.einsum("bhdn,bn->bhd", h_new, cvec.float())
+    y = einsum("bhdn,bn->bhd", h_new, cvec.float())
     y = y + xh * p.d_skip[None, :, None]
     y = y.reshape(b, 1, d_inner).to(x.dtype)
     y = _gated_norm(y, z, p.norm_g)

@@ -19,8 +19,12 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
-from .layers import GroupNorm, Init, Linear, groupnorm_heads, linear
+from repro_torch.launch.hlo_analysis import recurrence
+
+from .layers import (GroupNorm, Init, Linear, gather_dim, groupnorm_heads,
+                     linear)
 
 
 class MLSTMState(NamedTuple):
@@ -122,20 +126,49 @@ def _mlstm_chunk(q, k, v, li, lf, state: MLSTMState):
     return h_out, MLSTMState(c=c_new, n=n_new, m=m_new)
 
 
+def _batch_sharded(y):
+    """A DTensor with its batch dim (0) as it is and every other mesh dim
+    replicated: a partial sum reduced, a sharded dim gathered.  Left to
+    DTensor, the mLSTM's partial sums (``wq``, ``wk``, ``wi``, ``wf``
+    contract a sharded dim) are reduce-scattered onto the sequence dim,
+    which the chunk loop then slices, and ``wv``'s output is sharded on
+    the value dim, which the head split cannot keep (DTensor splits a
+    sharded dim only on its outer factor)."""
+    if not isinstance(y, DTensor):
+        return y
+    return y.redistribute(y.device_mesh, [
+        p if p.is_shard(0) else Replicate() for p in y.placements])
+
+
+def _merge_heads(h):
+    """[B, S, H, dh] -> [B, S, H*dh].  A DTensor over a mesh dim whose
+    size does not divide H is made whole in (H, dh) first (the group
+    norm shards dh, a merge torch 2.11 refuses), and the merged result is
+    pinned to its own layout: the gradient that comes back sharded on
+    the merged dim could not be split into (H, dh) again."""
+    b, s, heads, dh = h.shape
+    if not (isinstance(h, DTensor) and any(
+            heads % n for n in h.device_mesh.shape)):
+        return h.reshape(b, s, heads * dh)
+    h = gather_dim(gather_dim(h, 3), 2)
+    y = h.reshape(b, s, heads * dh)
+    return y.redistribute(y.device_mesh, y.placements)
+
+
 def _mlstm_qkv_gates(x, p, heads, dh):
     b, s = x.shape[:2]
     xi, gate = linear(x, p.up_x), linear(x, p.up_g)
-    q, k, v = (linear(xi, w).reshape(b, s, heads, dh).float()
+    q, k, v = (_batch_sharded(linear(xi, w)).reshape(b, s, heads, dh).float()
                for w in (p.wq, p.wk, p.wv))
-    li = F.logsigmoid(linear(xi, p.wi).float() + 4.0)
-    lf = F.logsigmoid(linear(xi, p.wf).float() + 4.0)
+    li = F.logsigmoid(_batch_sharded(linear(xi, p.wi)).float() + 4.0)
+    lf = F.logsigmoid(_batch_sharded(linear(xi, p.wf)).float() + 4.0)
     return gate, q, k, v, li, lf
 
 
 def mlstm_forward(x, p, cfg, state: MLSTMState | None = None):
     """Full-sequence mLSTM block.  x: [B,S,d]."""
     b, s, d = x.shape
-    d_inner, heads, dh = mlstm_dims(cfg)
+    _, heads, dh = mlstm_dims(cfg)
     gate, q, k, v, li, lf = _mlstm_qkv_gates(x, p, heads, dh)
 
     ch = min(cfg.xlstm.chunk, s)
@@ -157,15 +190,13 @@ def mlstm_forward(x, p, cfg, state: MLSTMState | None = None):
                              lf[:, sl], st)
         hs.append(h)
     h = torch.cat(hs, dim=1)[:, :s]
-    h = groupnorm_heads(h.to(x.dtype), p.gn)
-    h = h.reshape(b, s, d_inner) * F.silu(gate)
+    h = _merge_heads(groupnorm_heads(h.to(x.dtype), p.gn)) * F.silu(gate)
     return linear(h, p.down), st
 
 
 def mlstm_decode(x, p, cfg, state: MLSTMState):
     """O(1) recurrent step.  x: [B,1,d]."""
-    b = x.shape[0]
-    d_inner, heads, dh = mlstm_dims(cfg)
+    _, heads, dh = mlstm_dims(cfg)
     gate, q, k, v, li, lf = _mlstm_qkv_gates(x, p, heads, dh)
     q, k, v, li, lf = q[:, 0], k[:, 0], v[:, 0], li[:, 0], lf[:, 0]
 
@@ -180,8 +211,7 @@ def mlstm_decode(x, p, cfg, state: MLSTMState):
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", qn, n_new)),
                         torch.exp(-m_new))[..., None]
     h = (num / den).to(x.dtype)[:, None]                          # [B,1,H,dv]
-    h = groupnorm_heads(h, p.gn).reshape(b, 1, d_inner)
-    h = h * F.silu(gate)
+    h = _merge_heads(groupnorm_heads(h, p.gn)) * F.silu(gate)
     return linear(h, p.down), MLSTMState(c=c_new, n=n_new, m=m_new)
 
 
@@ -237,11 +267,15 @@ def slstm_forward(x, p, cfg, state: SLSTMState | None = None,
     if n_steps > s:
         gates = F.pad(gates, (0, 0, 0, 0, 0, 0, 0, n_steps - s))
     hs = []
-    for t in range(n_steps):
+    for t in recurrence(n_steps):
         st = _slstm_cell(gates[:, t], st, r_w)
         hs.append(st.h)
+    # a dry run's op trace runs a stretch of the steps and counts the
+    # others by the trip count (hlo_analysis.by_trip_count); their
+    # outputs stay unwritten.  Every step runs otherwise.
+    hs += [torch.empty_like(st.h)] * (s - len(hs))
     h = torch.stack(hs[:s], dim=1)                                # [B,S,H,dh]
-    h = groupnorm_heads(h.to(x.dtype), p.gn).reshape(b, s, d)
+    h = _merge_heads(groupnorm_heads(h.to(x.dtype), p.gn))
     up = linear(h, p.ff_up)
     ff = up.shape[-1] // 2
     y = F.gelu(up[..., :ff], approximate="tanh") * up[..., ff:]

@@ -20,9 +20,13 @@ from the stacked rank (``wk``'s bias ``[L, Hkv, dh]`` takes ``[fs(nd-3),
 None, tpx(nd-1)]``), so :func:`tree_specs` and :func:`opt_state_specs`
 compute each of the port's per-layer leaves (``blocks.3.attn.wk.b``) at
 its reference shape (``interop.lm_reference_shapes``) and drop the
-leading stacked entries, which must be ``None`` (or name only mesh axes
-of size 1): a leaf the reference shards across layers cannot be split
-per layer and raises.
+leading stacked entries, which are ``None`` or name only mesh axes of
+size 1 (the same layout).  A leaf whose stacked axes the reference
+shards over a mesh axis of more ranks (a qkv bias's layer axis under
+fsdp), in its parameter's spec or its moments' ZeRO spec, cannot be
+split per layer: it is held stacked (``interop.STACKED``), one
+``[L, ...]`` leaf with the reference's spec, and each layer takes its
+slice at use (``sharding.stack_parameters``).
 """
 from __future__ import annotations
 
@@ -172,17 +176,20 @@ def _spec_by_rules(p: str, shape, cfg, ctx, fsdp: bool) -> P:
     return P(*([None] * nd))
 
 
+def _splits(entries, ctx: ShardingCtx) -> bool:
+    """Whether any of the spec ``entries`` names a mesh axis of more than
+    one rank."""
+    sizes = ctx.shape
+    return any(e is not None and any(
+        sizes[a] > 1 for a in (e if isinstance(e, tuple) else (e,)))
+        for e in entries)
+
+
 def _unstacked(name: str, spec: P, depth: int, ctx: ShardingCtx) -> P:
     """``spec`` without its ``depth`` leading layer entries, which must
     be replicated: ``None``, or mesh axes of size 1 only (the same
     layout)."""
-    sizes = ctx.shape
-
-    def split(e):
-        axes = e if isinstance(e, tuple) else (e,)
-        return e is not None and any(sizes[a] > 1 for a in axes)
-
-    if any(split(e) for e in spec[:depth]):
+    if _splits(spec[:depth], ctx):
         raise ValueError(f"{name}: the reference shards a stacked layer "
                          f"axis ({spec!r}); a per-layer leaf cannot be")
     return P(*spec[depth:])
@@ -191,18 +198,23 @@ def _unstacked(name: str, spec: P, depth: int, ctx: ShardingCtx) -> P:
 def tree_specs(params, cfg: ModelConfig, ctx: ShardingCtx,
                fsdp: bool = False) -> dict[str, P]:
     """PartitionSpec of each parameter, by name: ``params`` maps the
-    model's parameter names to tensors (``meta`` ones do) or shapes."""
+    model's parameter names to tensors (``meta`` ones do) or shapes.  A
+    leaf the reference shards across its stacked layer axes (module
+    docstring) is one stacked name with the reference's spec, in place
+    of its per-layer names."""
     ref = interop.lm_reference_shapes(params)
     out = {}
-    for name, (path, shape) in ref.items():
-        spec = spec_for(path, shape, cfg, ctx, fsdp)
-        out[name] = _unstacked(name, spec, len(shape) - _ndim(params[name]),
-                               ctx)
+    for name, (_, shape) in ref.items():
+        path, idx = interop.lm_split_name(name)
+        spec = spec_for(interop.lm_reference_key(path), shape, cfg, ctx,
+                        fsdp)
+        depth = len(idx)
+        if _splits(spec[:depth], ctx) or _splits(
+                zero_spec(spec, shape, ctx)[:depth], ctx):
+            out.setdefault(interop.lm_stacked_name(path), spec)
+        else:
+            out[name] = _unstacked(name, spec, depth, ctx)
     return out
-
-
-def _ndim(leaf) -> int:
-    return len(leaf.shape) if hasattr(leaf, "shape") else len(leaf)
 
 
 def zero_spec(spec: P, shape: tuple[int, ...], ctx: ShardingCtx) -> P:
@@ -232,13 +244,17 @@ def zero_spec(spec: P, shape: tuple[int, ...], ctx: ShardingCtx) -> P:
 
 def opt_state_specs(param_specs: dict, params, ctx: ShardingCtx):
     """Specs for AdamW (step, mu, nu): mu/nu = param spec + ZeRO, each
-    taken at the leaf's reference (stacked) shape."""
+    taken at the leaf's reference (stacked) shape.  ``params`` may hold
+    the per-layer leaves of a stacked name of ``param_specs``."""
     from repro_torch.training.optimizer import AdamWState
 
-    ref = interop.lm_reference_shapes(params)
+    shapes = {interop.lm_split_name(k)[0]: shape
+              for k, (_, shape) in interop.lm_reference_shapes(
+                  params).items()}
     z = {}
     for name, spec in param_specs.items():
-        depth = len(ref[name][1]) - len(spec)
-        stacked = zero_spec(P(*([None] * depth), *spec), ref[name][1], ctx)
+        shape = shapes[interop.lm_split_name(name)[0]]
+        depth = len(shape) - len(spec)
+        stacked = zero_spec(P(*([None] * depth), *spec), shape, ctx)
         z[name] = _unstacked(name, stacked, depth, ctx)
     return AdamWState(step=P(), mu=z, nu=dict(z))

@@ -167,10 +167,15 @@ def placements(spec, mesh) -> tuple:
 
 def distribute(tree, specs, mesh):
     """DTensors of ``tree``'s leaves in ``specs``' layouts (same
-    structure: dicts, lists, tuples, NamedTuples)."""
+    structure: dicts, lists, tuples, NamedTuples).  A dict of per-layer
+    parameter leaves whose specs name a stacked leaf is stacked first
+    (``interop.lm_stack``)."""
     from torch.distributed.tensor import distribute_tensor
 
     if isinstance(tree, dict):
+        if set(tree) != set(specs):
+            from repro_torch import interop
+            tree = interop.lm_stack(tree, specs)
         return {k: distribute(v, specs[k], mesh) for k, v in tree.items()}
     if isinstance(tree, list):
         return [distribute(v, s, mesh) for v, s in zip(tree, specs)]
@@ -180,11 +185,72 @@ def distribute(tree, specs, mesh):
     return distribute_tensor(tree, mesh, placements(specs, mesh))
 
 
+def _layer_slice(leaf: str):
+    """A property reading ``leaf`` as its layer's slice of a stacked
+    parameter (``module._stacked_slices[leaf] = (holder, name, index)``),
+    taken at each use: a DTensor sharded on its layer axes is gathered on
+    them first, as XLA gathers a scanned leaf's layer inside its loop."""
+    def get(self):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        holder, name, idx = self._stacked_slices[leaf]
+        t = getattr(holder, name)
+        if isinstance(t, DTensor):
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if p.is_shard() and p.dim < len(idx) else p
+                for p in t.placements])
+        return t[idx]
+    return property(get)
+
+
+def stack_parameters(model, names) -> None:
+    """Hold each stacked name of ``names`` (``interop.STACKED``) as one
+    parameter of ``model``, in place: the per-layer leaves stacked on the
+    reference's leading axes, registered under the name (on holder
+    modules below ``model.stacked``), and each layer's module reading its
+    slice of it where the leaf was (a subclass with a property, as
+    ``torch.nn.utils.parametrize`` does)."""
+    from repro_torch import interop
+
+    want = [n for n in names if n.startswith(interop.STACKED)]
+    if not want:
+        return
+    groups: dict = {}
+    for name, p in model.named_parameters():
+        path, idx = interop.lm_split_name(name)
+        groups.setdefault(path, {})[idx] = (name, p)
+    for sname in want:
+        path, _ = interop.lm_split_name(sname)
+        members = groups[path]
+        stacked = interop.lm_stack(
+            {n: p.detach() for n, p in members.values()}, [sname])[sname]
+        holder = model
+        for part in ("stacked",) + path[:-1]:
+            if part not in holder._modules:
+                holder.add_module(part, torch.nn.Module())
+            holder = holder._modules[part]
+        holder.register_parameter(path[-1], torch.nn.Parameter(
+            stacked, requires_grad=any(p.requires_grad
+                                       for _, p in members.values())))
+        for idx, (name, _) in members.items():
+            owner, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(owner)
+            del mod._parameters[leaf]
+            cls = type(mod)
+            mod.__class__ = type(cls.__name__, (cls,),
+                                 {leaf: _layer_slice(leaf)})
+            slices = dict(mod.__dict__.get("_stacked_slices", {}))
+            slices[leaf] = (holder, path[-1], idx)
+            mod.__dict__["_stacked_slices"] = slices
+
+
 def distribute_parameters(model, specs: dict, mesh):
     """Replace each of ``model``'s parameters, in place, by a DTensor
-    parameter in its spec's layout."""
+    parameter in its spec's layout; a stacked name of ``specs`` is
+    stacked first (:func:`stack_parameters`)."""
     from torch.distributed.tensor import distribute_tensor
 
+    stack_parameters(model, specs)
     for name, p in list(model.named_parameters()):
         owner, _, leaf = name.rpartition(".")
         mod = model.get_submodule(owner)
@@ -195,13 +261,86 @@ def distribute_parameters(model, specs: dict, mesh):
     return model
 
 
+def _pointwise(ndim: int, n_in: int, buffer_like: bool, buffer_at):
+    """The acceptable (outputs, inputs) placements of a pointwise op on
+    one mesh dim: every tensor sharded on the same dim, or all
+    replicated.  The tensor at ``buffer_at`` (``log_sigmoid``'s buffer,
+    an output of the forward, an input of the backward) is the input's
+    shape on the CPU and on ``meta`` but empty on CUDA, so it follows the
+    others only when ``buffer_like``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for pl in [Shard(d) for d in range(ndim)] + [Replicate()]:
+        row = [pl] * n_in
+        if not buffer_like:
+            row[buffer_at] = Replicate()
+        out.append(row)
+    return out
+
+
+def _register_strategies() -> None:
+    """DTensor strategies for ``log_sigmoid_forward`` and
+    ``log_sigmoid_backward`` (``F.logsigmoid`` and its gradient, the
+    xLSTM gates), which torch's DTensor lacks, and for ``flip`` (the
+    backward of ``cumsum``: the SSD and mLSTM decays), which torch 2.11's
+    lacks: pointwise (``flip`` on any dim it does not reverse), registered
+    through ``register_sharding``.  The values are the ops' own on each
+    rank's shard."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    aten = torch.ops.aten
+
+    @register_sharding(aten.flip.default)
+    def _flip(x, dims):
+        flipped = {d % x.ndim for d in dims}
+        return [([Shard(d)], [Shard(d), None]) for d in range(x.ndim)
+                if d not in flipped] + [([Replicate()], [Replicate(), None])]
+
+    @register_sharding(aten.log_sigmoid_forward.default)
+    def _forward(x):
+        like = x.device_mesh.device_type != "cuda"
+        return [(row[:2], row[2:]) for row in
+                _pointwise(x.ndim, 3, like, buffer_at=1)]
+
+    @register_sharding(aten.log_sigmoid_backward.default)
+    def _backward(grad, x, buffer):
+        like = buffer.ndim == x.ndim
+        return [(row[:1], row[1:]) for row in
+                _pointwise(x.ndim, 4, like, buffer_at=3)]
+
+
+_register_strategies()
+
+
+def even_placements(pl, shape, mesh) -> list:
+    """``pl`` with ``Replicate()`` on each mesh dim that would split its
+    tensor dim unevenly, after the mesh dims before it (16 rows over
+    2 x 16 ranks keep the 2): DTensor flattens an unevenly split dim with
+    the wrong local shapes, where GSPMD pads."""
+    from torch.distributed.tensor import Replicate
+
+    left, out = list(shape), []
+    for p, n in zip(pl, mesh.shape):
+        if p.is_shard() and left[p.dim] % n:
+            p = Replicate()
+        elif p.is_shard():
+            left[p.dim] //= n
+        out.append(p)
+    return out
+
+
 def with_sharding(ctx: Optional[ShardingCtx], x, *axes: Optional[str]):
     """Redistribute a DTensor ``x`` to the logical ``axes`` on ``ctx``'s
-    mesh; the identity without a context or on a plain tensor."""
+    mesh, a mesh dim that would split a dim unevenly left replicated
+    (:func:`even_placements`); the identity without a context or on a
+    plain tensor."""
     if ctx is None:
         return x
     from torch.distributed.tensor import DTensor
 
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(ctx.mesh, ctx.placements(*axes))
+    return x.redistribute(ctx.mesh, even_placements(
+        ctx.placements(*axes), x.shape, ctx.mesh))

@@ -20,6 +20,10 @@ Layout (one directory per step), the reference's:
   each on a mesh with ``distribute_tensor`` when ``shardings`` names one,
   so restoring onto a different mesh (the elastic restore) is passing the
   new shardings.
+* A stacked parameter leaf (``interop.STACKED``, a layout of the sharded
+  step) is stored as its per-layer leaves, the plain layout; ``restore``
+  stacks them again wherever ``like`` or ``shardings`` names the stacked
+  leaf, so either layout restores the other's checkpoint.
 """
 from __future__ import annotations
 
@@ -46,6 +50,28 @@ def _children(node):
     if isinstance(node, (list, tuple)):
         return [(f"[{i}]", v) for i, v in enumerate(node)]
     return None
+
+
+def _stacked(node) -> bool:
+    from repro_torch import interop
+
+    return isinstance(node, dict) and any(
+        isinstance(k, str) and k.startswith(interop.STACKED) for k in node)
+
+
+def _plain(tree):
+    """``tree`` with every stacked parameter leaf split per layer."""
+    from repro_torch import interop
+
+    if _stacked(tree):
+        tree = interop.lm_unstack(tree)
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(_plain(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_plain(v) for v in tree)
+    return tree
 
 
 def _flat(tree, prefix=()):
@@ -91,6 +117,7 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: dict | None = None) -> str:
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
 
+    tree = _plain(tree)
     flat = {k: _to_numpy(v) for k, v in _flat(tree)}
     np.savez(os.path.join(tmp, "shard_00000.npz"), **flat)
     meta = {
@@ -140,6 +167,8 @@ def restore(ckpt_dir: str, step: int, like: Any, device=None,
 
 
 def _rebuild(node, prefix, data, device, shardings=None):
+    if _stacked(node) or _stacked(shardings):
+        return _rebuild_stacked(node, prefix, data, device, shardings)
     kids = _children(node)
     if kids is None:
         key = "/".join(prefix)
@@ -165,3 +194,21 @@ def _rebuild(node, prefix, data, device, shardings=None):
     if _is_namedtuple(node):
         return type(node)(*vals)
     return type(node)(vals)
+
+
+def _rebuild_stacked(node, prefix, data, device, shardings):
+    """A dict of parameter leaves in which ``node`` or ``shardings``
+    names a stacked leaf: the stored per-layer leaves restored, stacked
+    in the layout of ``shardings`` (else ``node``), then placed."""
+    from repro_torch import interop
+
+    plain = interop.lm_unstack(node)
+    vals = {k: _rebuild(v, prefix + (f"[{k!r}]",), data, device)
+            for k, v in plain.items()}
+    layout = shardings if _stacked(shardings) else node
+    out = interop.lm_stack(vals, layout)
+    for k, v in out.items():
+        sh = (shardings or {}).get(k)
+        if sh is not None:
+            out[k] = distribute_tensor(v, *sh, src_data_rank=None)
+    return out

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.types import device_const
+from repro_torch.interop import STACKED
 
 F32 = torch.float32
 
@@ -79,8 +80,9 @@ def schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
 def reference_order(name: str):
     """Sort key that visits per-layer leaves in the reference's leaf
     order: its sorted dict path (the name without layer indices), then the
-    layer indices of its stacked leading axes."""
-    parts = name.split(".")
+    layer indices of its stacked leading axes (a stacked leaf,
+    ``interop.STACKED``, by its path alone)."""
+    parts = name.removeprefix(STACKED).split(".")
     return ([p for p in parts if not p.isdigit()],
             [int(p) for p in parts if p.isdigit()])
 

@@ -29,7 +29,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.types import device_const
 from repro_torch.models import model as model_mod
-from repro_torch.parallel.sharding import with_sharding
+from repro_torch.parallel.sharding import even_placements, with_sharding
 
 from .optimizer import AdamWConfig, AdamWState, adamw_update
 
@@ -74,13 +74,17 @@ def _chunks(v: torch.Tensor, n: int, dim: int):
     """``v.chunk(n, dim)``: microbatch i holds the global rows
     [i*b/n, (i+1)*b/n), as the reference's reshape.  A DTensor sharded on
     ``dim`` is gathered on it first and each microbatch resharded to
-    ``v``'s placements (an all-gather of the batch, then local slices)."""
+    ``v``'s placements (an all-gather of the batch, then local slices),
+    but replicated over a mesh dim that would split its rows unevenly
+    (16 rows over 2 x 16 ranks: DTensor then flattens the batch with the
+    wrong local shapes)."""
     if not isinstance(v, DTensor):
         return v.chunk(n, dim=dim)
     mesh, pl = v.device_mesh, v.placements
     whole = v.redistribute(mesh, [Replicate() if q.is_shard(dim) else q
                                   for q in pl])
-    return [c.redistribute(mesh, pl) for c in whole.chunk(n, dim=dim)]
+    return [c.redistribute(mesh, even_placements(pl, c.shape, mesh))
+            for c in whole.chunk(n, dim=dim)]
 
 
 def split_microbatches(batch: dict, n: int) -> list[dict]:

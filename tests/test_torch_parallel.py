@@ -197,23 +197,34 @@ def test_layer_sharded_leaf_raises():
     """Under fsdp the reference shards the qkv biases' layer axis when the
     layer count divides over the data axes (``[fs(nd - 3), None,
     tpx(nd - 1)]`` on ``[L, H, dh]``): reduced qwen2 (2 layers) on a 2 x 1
-    mesh.  A per-layer leaf cannot hold that layout, so the port raises."""
+    mesh.  The port no longer raises there: it holds each such leaf
+    stacked (``stacked.blocks.attn.wq.b``) with the reference's spec,
+    ``('data', 'model', None)`` on this mesh (the model axis has one
+    rank, which divides every head count), and every other leaf, and the
+    AdamW moments, equal the reference's too."""
     from repro.configs import reduced as j_reduced
     from repro_torch.configs import reduced
 
     shape, names = (2, 1), ("data", "model")
-    jcfg = j_reduced(J_ARCHS["qwen2-0.5b"])
+    jcfg, cfg = j_reduced(J_ARCHS["qwen2-0.5b"]), reduced(ARCHS["qwen2-0.5b"])
+    jctx = j_sharding.make_ctx(AbstractMesh(shape, names))
     ref = jax.eval_shape(lambda: j_model.init_params(
         jax.random.PRNGKey(0), jcfg))
-    j_specs = j_pspec.tree_specs(ref, jcfg, j_sharding.make_ctx(
-        AbstractMesh(shape, names)), fsdp=True)
-    assert tuple(j_specs["blocks"]["attn"]["wq"]["b"])[0] == "data"
-    port = dict(build_model(reduced(ARCHS["qwen2-0.5b"]),
-                            device="meta").named_parameters())
-    with pytest.raises(ValueError, match="stacked layer axis"):
-        pspec.tree_specs(port, reduced(ARCHS["qwen2-0.5b"]),
-                         sharding.make_ctx(dict(zip(names, shape))),
-                         fsdp=True)
+    j_specs = j_pspec.tree_specs(ref, jcfg, jctx, fsdp=True)
+    assert tuple(j_specs["blocks"]["attn"]["wq"]["b"]) == (
+        "data", "model", None)
+    port = dict(build_model(cfg, device="meta").named_parameters())
+    ctx = sharding.make_ctx(dict(zip(names, shape)))
+    p_specs = pspec.tree_specs(port, cfg, ctx, fsdp=True)
+    stacked = sorted(k for k in p_specs if k.startswith(interop.STACKED))
+    assert stacked == [f"stacked.blocks.attn.{w}.b" for w in ("wk", "wq",
+                                                             "wv")]
+    assert p_specs["stacked.blocks.attn.wq.b"] == ("data", "model", None)
+    assert interop.lm_specs_to_reference(p_specs) == _as_tuples(j_specs)
+    j_opt = j_pspec.opt_state_specs(j_specs, ref, jctx)
+    p_opt = pspec.opt_state_specs(p_specs, port, ctx)
+    assert interop.lm_specs_to_reference(p_opt.mu) == _as_tuples(j_opt.mu)
+    assert interop.lm_specs_to_reference(p_opt.nu) == _as_tuples(j_opt.nu)
 
 
 def test_layer_axis_on_a_size_one_mesh_axis_is_dropped():
