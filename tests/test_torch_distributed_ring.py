@@ -14,8 +14,6 @@ counter wraps as a uint32 and the others saturate, a position holding two
 live lines of one entry serves the later line's value, and a one-rank
 ``ProcessRing`` equals ``StackedRing(1)``.
 """
-import os
-import socket
 import subprocess
 import sys
 
@@ -24,7 +22,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.distributed as tdist
 
 from repro.core import distributed as jdist
 from repro.core.hashing import hash128_u32_np
@@ -33,9 +30,9 @@ from repro.core.types import empty_batch as j_empty
 from repro_torch.core import distributed as dist
 from repro_torch.core.types import empty_batch
 from repro_torch.interop import from_numpy, ring_state_from_numpy, to_numpy
+from ranks import child_env, one_rank_group, run_ranks
 from torch_parity import assert_flat_equal, assert_trees_equal, tree_from_flat
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 D, C, S, L, PAD, B = 8, 16, 4, 4, 64, 8
 U32_TOP = 2**32 - 1
 
@@ -112,9 +109,9 @@ from repro_torch.core.types import empty_batch
 from repro_torch.interop import to_numpy
 from torch_parity import assert_trees_equal, tree_from_flat
 
-path, rank, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+path, rank, store = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 torch.set_num_threads(1)
-tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+tdist.init_process_group("gloo", init_method=f"file://{store}",
                          rank=rank, world_size=8)
 try:
     flat = dict(np.load(path))
@@ -140,45 +137,12 @@ finally:
 """
 
 
-def _env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [os.path.join(HERE, "..", "src"), HERE])
-    env["OMP_NUM_THREADS"] = "1"
-    return env
-
-
-def free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def run_ranks(script, args, n=8, timeout=240):
-    """Start ``n`` processes of ``script`` (rank, port appended to
-    ``args``), wait for all; returns their standard outputs."""
-    port = free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", script, *map(str, args), str(r), str(port)],
-        env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for r in range(n)]
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=timeout)
-            outs.append((p.returncode, out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (rc, out, err) in enumerate(outs):
-        assert rc == 0, f"rank {r} exited {rc}: {err[-3000:]}"
-    return [out for _, out, _ in outs]
-
-
-def dump_reference(script, path, timeout=600):
-    p = subprocess.run([sys.executable, "-c", script, str(path)], env=_env(),
+def dump_reference(script, path, timeout=150):
+    """Run the reference's ``script`` (argv: ``path``) in its own process
+    and load its dump (the tests that take it: at most 29.8 s in 6 suite
+    runs on 4 cores)."""
+    p = subprocess.run([sys.executable, "-c", script, str(path)],
+                       env=child_env(),
                        capture_output=True, text=True, timeout=timeout)
     assert "DUMP_OK" in p.stdout, p.stderr[-3000:]
     return dict(np.load(path))
@@ -221,9 +185,8 @@ def test_stacked_ring_matches_reference_over_a_revolution(ref_dump):
 
 def test_process_ring_gloo_matches_reference(ref_dump):
     path, _ = ref_dump
-    outs = run_ranks(WORKER, [path])
-    for r, out in enumerate(outs):
-        assert f"RANK_OK {r}" in out, out
+    run_ranks(WORKER, [path], path.parent, n=8,
+              timeout=120)  # 22.8 s: most of 6 suite runs, 4 cores
 
 
 def _one_position(seed_lines):
@@ -318,18 +281,14 @@ def test_repeated_entry_lines_serve_the_later_line():
         assert_trees_equal(g, w, f"step {k}")
 
 
-def test_one_rank_process_ring_equals_stacked():
+def test_one_rank_process_ring_equals_stacked(tmp_path):
     st = ring_state_from_numpy(_one_position([(0, 0, 1), (3, 3, 4)]), "cpu")
     pks = [from_numpy(_reads(k), "cpu") for k in ([0, 3, 3, 1], [], [0])]
     stacked = _port_steps(dist.StackedRing(1), st, pks)
-    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
-                             f"{free_port()}", rank=0, world_size=1)
-    try:
+    with one_rank_group(tmp_path):
         ring = dist.ProcessRing()
         got = _port_steps(ring, ring.local(st, dist.RING_DIMS),
                           [ring.local(pk) for pk in pks])
-    finally:
-        tdist.destroy_process_group()
     for k, ((g_st, g_sv), (w_st, w_sv)) in enumerate(zip(got, stacked)):
         assert_trees_equal(g_st, to_numpy(ring.local(w_st, dist.RING_DIMS)),
                            f"step {k} state")

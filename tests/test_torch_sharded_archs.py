@@ -39,7 +39,7 @@ torch = pytest.importorskip("torch")
 
 import torch_train_parity as tp  # noqa: E402
 from torch_train_parity import one_thread  # noqa: E402,F401
-from test_torch_sharded_train import run_two_ranks  # noqa: E402
+from ranks import run_ranks  # noqa: E402
 
 from repro_torch import interop  # noqa: E402
 from repro_torch.training.optimizer import AdamWState  # noqa: E402
@@ -62,9 +62,9 @@ from repro_torch.parallel import param_specs as pspec, sharding
 from repro_torch.training.optimizer import AdamWConfig, AdamWState, adamw_init
 from repro_torch.training.train_step import TrainConfig, make_train_step
 
-path, rank, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+path, rank, store = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 torch.set_num_threads(1)
-tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+tdist.init_process_group("gloo", init_method=f"file://{store}",
                          rank=rank, world_size=2)
 full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
 spec = torch.load(path + ".in", weights_only=True)
@@ -307,7 +307,9 @@ def runs(tmp_path_factory):
     torch.save(dict(cases=CASES, batch=batch, tokens=batch["tokens"],
                     microbatches=tp.MICROBATCHES, lr=tp.LR, cache=CACHE,
                     decode_steps=DECODE_STEPS), f"{path}.in")
-    run_two_ranks(WORKER, path, timeout=400)
+    # 3x the most of 6 suite runs on 4 cores (91.5 s), to end before the
+    # 300 s limit of the test that sets this fixture up
+    run_ranks(WORKER, [path], path.parent, n=2, timeout=270)
     return torch.load(path, weights_only=False)
 
 

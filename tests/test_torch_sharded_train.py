@@ -43,24 +43,19 @@ over ``gloo``.
   sharded) and a ``(1, 2)`` mesh (sequence sharded): each rank's local
   cache equals its slice of the plain in-place write (exact).
 """
-import os
-import socket
-import subprocess
-import sys
-
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
-import torch.distributed as tdist  # noqa: E402
 from jax.sharding import NamedSharding  # noqa: E402
 from jax.sharding import PartitionSpec as JP  # noqa: E402
 from torch.distributed.tensor import DTensor  # noqa: E402
 
 import torch_train_parity as tp  # noqa: E402
 from torch_train_parity import one_thread  # noqa: E402,F401
+from ranks import one_rank_group, run_ranks  # noqa: E402
 
 from repro.launch.mesh import make_host_mesh as j_host_mesh  # noqa: E402
 from repro.parallel import param_specs as j_pspec  # noqa: E402
@@ -79,28 +74,18 @@ from repro_torch.training.optimizer import (  # noqa: E402
 from repro_torch.training.train_step import (  # noqa: E402
     TrainConfig, make_train_step)
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 ARCHS = ["qwen2-0.5b", "mixtral-8x7b"]
 _STEPS: dict = {}
 
 
-def free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
-def mesh():
+def mesh(tmp_path_factory):
     """A one-rank gloo group and its 1 x 1 mesh, destroyed after the
     module."""
-    tdist.init_process_group("gloo",
-                             init_method=f"tcp://127.0.0.1:{free_port()}",
-                             rank=0, world_size=1)
     try:
-        yield make_host_mesh(device_type="cpu")
+        with one_rank_group(tmp_path_factory.mktemp("group")):
+            yield make_host_mesh(device_type="cpu")
     finally:
-        tdist.destroy_process_group()
         _STEPS.clear()
 
 
@@ -212,9 +197,9 @@ from repro_torch.parallel import param_specs as pspec, sharding
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.optimizer import AdamWConfig, adamw_init
 
-path, rank, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+path, rank, store = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 torch.set_num_threads(1)
-tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+tdist.init_process_group("gloo", init_method=f"file://{store}",
                          rank=rank, world_size=2)
 
 
@@ -287,34 +272,9 @@ finally:
 """
 
 
-def run_two_ranks(worker, path, timeout=240):
-    """``worker`` as two spawned gloo ranks (argv: ``path``, rank, port);
-    fails unless both print ``RANK_OK <rank>``."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join([os.path.join(HERE, "..", "src"),
-                                         HERE])
-    env["OMP_NUM_THREADS"] = "1"
-    port = free_port()
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", worker, str(path), str(r), str(port)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=timeout)
-            outs.append((p.returncode, out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (rc, out, err) in enumerate(outs):
-        assert rc == 0 and f"RANK_OK {r}" in out, (r, rc, out, err[-3000:])
-
-
 def test_elastic_restore_and_sharded_cache_write(tmp_path):
-    run_two_ranks(WORKER, tmp_path / "ckpt")
+    run_ranks(WORKER, [tmp_path / "ckpt"], tmp_path, n=2,
+              timeout=110)  # 21.0 s: most of 6 suite runs, 4 cores
 
 
 STEP_WORKER = r"""
@@ -330,9 +290,9 @@ from repro_torch.parallel import param_specs as pspec, sharding
 from repro_torch.training.optimizer import AdamWConfig, AdamWState, adamw_init
 from repro_torch.training.train_step import TrainConfig, make_train_step
 
-path, rank, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+path, rank, store = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 torch.set_num_threads(1)
-tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+tdist.init_process_group("gloo", init_method=f"file://{store}",
                          rank=rank, world_size=2)
 full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
 spec = torch.load(path + ".in", weights_only=True)
@@ -422,7 +382,9 @@ def two_rank_steps(tmp_path_factory):
                     microbatches=tp.MICROBATCHES, lr=tp.LR,
                     batches={a: two_rank_case(a)[1]
                              for a in TWO_RANK_OVERRIDES}), f"{path}.in")
-    run_two_ranks(STEP_WORKER, path, timeout=400)
+    # 3x the most of 6 suite runs on 4 cores (83.1 s), to end before the
+    # 300 s limit of the test that sets this fixture up
+    run_ranks(STEP_WORKER, [path], path.parent, n=2, timeout=250)
     return torch.load(path, weights_only=True)
 
 
