@@ -51,8 +51,8 @@ RULES: dict = {}
 #     _bucket_counts — the latency histogram's integer scatter-add;
 #     last_writer — the port's single-writer algebra (``scatter_reduce``
 #       amax of lane numbers, the reference's one-hot argmax);
-#     server_step — the store-side key_version integer index_add (the
-#       reference allowlists it);
+#     server_step — the store-side key_version integer scatter-add, in
+#       place in a chunk's donated table (the reference allowlists it);
 #     merge_candidates_hashed — the server sketch's per-slot max estimate,
 #       ``scatter_reduce`` amax (the reference's ``.at[slot].max``, under
 #       its allowlisted ``server_step``);
@@ -336,9 +336,10 @@ def counter_saturation(entry) -> list[Finding]:
 def carry_in_place(entry) -> list[Finding]:
     """A chunk returns its own buffers.
 
-    The reference donates its carry; the port's chunk copies each window's
-    carry back into buffers it owns, so every carry leaf keeps its
-    ``data_ptr`` over chunks 1, 2 and 3.  On the card the reserved memory
+    The reference donates its carry; the port's chunk updates its
+    key-version table in place and copies each window's other carry leaves
+    back into buffers it owns, so every carry leaf keeps its ``data_ptr``
+    over chunks 1, 2 and 3.  On the card the reserved memory
     and the graphs' pools do not grow from chunk 2 to chunk 3."""
     h = entry.harness()
     if h.state is None:

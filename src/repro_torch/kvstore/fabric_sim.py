@@ -273,22 +273,25 @@ def spine_switch_latency(shape, base_rtt_us: float, hop_us: float,
 def fabric_window_step(cfg: RackConfig, fcfg: FabricConfig, server_cfg,
                        client_cfg: cl.ClientConfig, key_size: int,
                        wl: WorkloadArrays, carry: FabricCarry,
+                       donate: bool = False,
                        ) -> tuple[FabricCarry, FabricWindowMetrics]:
     """One fabric window: the draws from ``carry.draws``, then
     :func:`fabric_window`."""
     given = carry.draws.draw_window(carry.racks.offered, client_cfg.batch,
                                     target_shape(cfg, fcfg, client_cfg))
     return fabric_window(cfg, fcfg, server_cfg, client_cfg, key_size, wl,
-                         carry, given)
+                         carry, given, donate)
 
 
 def fabric_window(cfg: RackConfig, fcfg: FabricConfig, server_cfg,
                   client_cfg: cl.ClientConfig, key_size: int,
                   wl: WorkloadArrays, carry: FabricCarry, given,
+                  donate: bool = False,
                   ) -> tuple[FabricCarry, FabricWindowMetrics]:
     """One fabric window on the draws ``given`` (``FabricDraws.
-    draw_window``'s).  vmap-clean: the batched fabric maps it over its
-    points."""
+    draw_window``'s; ``donate``: the racks' key versions are updated in
+    place, as ``simulator.window_step``'s).  vmap-clean: the batched
+    fabric maps it over its points."""
     r_fab, subrounds = fcfg.n_racks, cfg.subrounds
     n, u, w, tu, to = given
     dev = carry.local_frac.device
@@ -380,7 +383,7 @@ def fabric_window(cfg: RackConfig, fcfg: FabricConfig, server_cfg,
         sub = PacketBatch(*(torch.cat(xs, dim=1) for xs in
                             zip(local_i, c_i.pending, c_i.fetch, fwd_i)))
         return process_window(cfg, server_cfg, client_cfg, key_size, c_i,
-                              clients_i, reqs_i, sub)
+                              clients_i, reqs_i, sub, donate)
 
     racks2, rack_metrics = torch.func.vmap(rack_one)(
         racks, clientss, reqss, local_reqs, rack_fwd)
@@ -447,7 +450,7 @@ def fabric_controller_apply(cfg: RackConfig, fcfg: FabricConfig,
 # the batched fabric's steps: every point's draws, then the window vmapped
 # ---------------------------------------------------------------------------
 def batched_fabric_window_step(cfg, fcfg, server_cfg, client_cfg, key_size,
-                               wl, carry):
+                               wl, carry, donate=False):
     """One window of every point's fabric: ``carry.draws`` is a
     :class:`BatchedFabricDraws`, every other leaf and the metrics
     ``[P, ...]`` (the racks' ``[P, R, ...]``)."""
@@ -456,7 +459,7 @@ def batched_fabric_window_step(cfg, fcfg, server_cfg, client_cfg, key_size,
 
     def one(carry_i, given_i):
         return fabric_window(cfg, fcfg, server_cfg, client_cfg, key_size, wl,
-                             carry_i, given_i)
+                             carry_i, given_i, donate)
 
     new, m = torch.func.vmap(one)(carry._replace(draws=()), given)
     return new._replace(draws=carry.draws), m
@@ -508,11 +511,11 @@ class FabricChunk(CompiledChunk):
                                    device=device),
                        torch.zeros(lead, dtype=I32, device=device))
 
-    def step(self, wl, carry):
+    def step(self, wl, carry, donate=False):
         fn = (fabric_window_step if self.n_points is None
               else batched_fabric_window_step)
         return fn(self.cfg, self.fcfg, self.server_cfg, self.client_cfg,
-                  self.key_size, wl, carry)
+                  self.key_size, wl, carry, donate)
 
     def apply(self, wl, carry, active):
         fn = (fabric_controller_apply if self.n_points is None

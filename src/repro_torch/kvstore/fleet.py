@@ -84,18 +84,19 @@ class FleetDraws:
 
 def fleet_window_step(cfg: RackConfig, server_cfg, client_cfg, key_size: int,
                       wl: WorkloadArrays, wl_dims: WorkloadArrays,
-                      carry: SimCarry) -> tuple[SimCarry, WindowMetrics]:
+                      carry: SimCarry, donate: bool = False,
+                      ) -> tuple[SimCarry, WindowMetrics]:
     """One window of every point: the draws per point, then ``window_step``
     vmapped over the point axis (``wl_dims``: 0 for a stacked workload
-    leaf, None for a shared one).  The carry's ``draws`` is a
-    :class:`FleetDraws`; every other leaf and the metrics are ``[P,
-    ...]``."""
+    leaf, None for a shared one; ``donate`` as ``window_step``'s).  The
+    carry's ``draws`` is a :class:`FleetDraws`; every other leaf and the
+    metrics are ``[P, ...]``."""
     n, u, w = carry.draws.draw_all(carry.offered, client_cfg.batch)
 
     def one(wl_i, carry_i, n_i, u_i, w_i):
         new, m = window_step(cfg, server_cfg, client_cfg, key_size, wl_i,
                              carry_i._replace(
-                                 draws=cl.GivenDraws(n_i, u_i, w_i)))
+                                 draws=cl.GivenDraws(n_i, u_i, w_i)), donate)
         return new._replace(draws=()), m
 
     new, m = torch.func.vmap(one, in_dims=(wl_dims, 0, 0, 0, 0))(
@@ -140,9 +141,10 @@ class FleetChunk(CompiledChunk):
             self.wl_dims, self.wl = dims, None
             self._graphs.clear()
 
-    def step(self, wl, carry):
+    def step(self, wl, carry, donate=False):
         return fleet_window_step(self.cfg, self.server_cfg, self.client_cfg,
-                                 self.key_size, wl, self.wl_dims, carry)
+                                 self.key_size, wl, self.wl_dims, carry,
+                                 donate)
 
     def apply(self, wl, carry, active):
         return fleet_controller_apply(self.cfg, self.ctrl_cfg, wl,

@@ -82,9 +82,15 @@ class ServerStepOut(NamedTuple):
 
 def server_step(st: ServerState, cfg: ServerConfig, pkts: PacketBatch,
                 to_server: torch.Tensor, flag_in: torch.Tensor,
-                now: torch.Tensor) -> tuple[ServerState, ServerStepOut]:
+                now: torch.Tensor, donate: bool = False,
+                ) -> tuple[ServerState, ServerStepOut]:
     """Enqueue this window's arrivals, serve up to ``cap`` per server and
-    emit the reply lanes."""
+    emit the reply lanes.
+
+    ``donate``: the caller owns ``st`` and gives it up (a chunk's own
+    carry, as the reference donates its scan's), so the write versions are
+    added into ``st.key_version`` in place; otherwise ``st`` is left as it
+    was and the new table is a new tensor."""
     n, q, cap, f = (cfg.num_servers, cfg.queue_depth, cfg.cap_per_window,
                     cfg.max_frags)
     pad = cfg.value_pad
@@ -132,9 +138,13 @@ def server_step(st: ServerState, cfg: ServerConfig, pkts: PacketBatch,
     s_client, s_flag = g(st.client), g(st.flag)
     s_vlen, s_ts = g(st.vlen), g(st.ts)
 
-    # write versions bump before value generation (dropped lanes add 0)
+    # write versions bump before value generation (dropped lanes add 0);
+    # a scatter-add, which vmap batches as one op (its index_add batching
+    # rule adds point by point and stacks the whole table)
     w_mask = live & (s_op == OP_W_REQ)
-    kv = st.key_version.index_add(
+    bump = (st.key_version.scatter_add_ if donate
+            else st.key_version.scatter_add)
+    kv = bump(
         0, torch.where(w_mask, s_kidx, 0).reshape(-1).long(),
         w_mask.reshape(-1).to(I32))
     version = kv[s_kidx.long()]

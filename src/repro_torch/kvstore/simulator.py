@@ -261,19 +261,22 @@ def generate_ingress(cfg: RackConfig, client_cfg: cl.ClientConfig,
 
 def window_step(cfg: RackConfig, server_cfg: ServerConfig,
                 client_cfg: cl.ClientConfig, key_size: int,
-                wl: WorkloadArrays, carry: SimCarry,
+                wl: WorkloadArrays, carry: SimCarry, donate: bool = False,
                 ) -> tuple[SimCarry, WindowMetrics]:
+    """One window of ``carry``; ``donate``: the caller gives ``carry`` up
+    and its key-version table is updated in place (:func:`server_step`)."""
     clients, reqs, sub = generate_ingress(cfg, client_cfg, wl, carry)
     return process_window(cfg, server_cfg, client_cfg, key_size, carry,
-                          clients, reqs, sub)
+                          clients, reqs, sub, donate)
 
 
 def process_window(cfg: RackConfig, server_cfg: ServerConfig,
                    client_cfg: cl.ClientConfig, key_size: int,
                    carry: SimCarry, clients: cl.ClientState,
-                   reqs: PacketBatch, sub: PacketBatch,
+                   reqs: PacketBatch, sub: PacketBatch, donate: bool = False,
                    ) -> tuple[SimCarry, WindowMetrics]:
-    """Run one window over the subround-major ingress ``sub``."""
+    """Run one window over the subround-major ingress ``sub`` (``donate``
+    as :func:`window_step`'s)."""
     c = cfg
     dev = sub.op.device
     f32 = lambda v: device_const(v, F32, dev)
@@ -341,7 +344,7 @@ def process_window(cfg: RackConfig, server_cfg: ServerConfig,
 
     to_server = (route_flat == ROUTE_SERVER) & ing_flat.valid
     servers, sout = server_step(carry.servers, server_cfg, ing_flat,
-                                to_server, flag_flat, carry.now)
+                                to_server, flag_flat, carry.now, donate)
 
     to_client = (route_flat == ROUTE_CLIENT) & ing_flat.valid
     if switch_reply is not None:
@@ -444,16 +447,26 @@ def _clone_tree(x):
     return tree_map(torch.clone, x)
 
 
-def _copy_tree_(dst, src) -> None:
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors are the same elements of the same memory (vmap
+    may hand an input it updated in place, or passed through, back as a
+    new tensor over that memory)."""
+    return (a.data_ptr() == b.data_ptr() and a.dtype == b.dtype
+            and a.shape == b.shape and a.stride() == b.stride())
+
+
+def _copy_tree_(dst, src) -> int:
     """Copy every tensor leaf of ``src`` into the same leaf of ``dst``, in
-    place, device to device; a leaf that already is its target is
-    skipped."""
+    place, device to device; a leaf that already is its target (updated in
+    place, or passed through) is skipped.  Returns the bytes copied."""
     if isinstance(dst, torch.Tensor):
-        if src is not dst:
-            dst.copy_(src)
-    elif isinstance(dst, tuple):
-        for d, v in zip(dst, src, strict=True):
-            _copy_tree_(d, v)
+        if _same_memory(dst, src):
+            return 0
+        dst.copy_(src)
+        return dst.nbytes
+    if isinstance(dst, tuple):
+        return sum(_copy_tree_(d, v) for d, v in zip(dst, src, strict=True))
+    return 0
 
 
 def tree_stack(trees):
@@ -496,14 +509,17 @@ class CompiledChunk:
     or ``n_periods`` control-plane periods, over buffers the chunk owns.
 
     One window is a plain function of those buffers (:meth:`window_body`):
-    ``window_step`` on the chunk's carry, every leaf of the new carry
-    copied back into it, the window's metrics written at a device index,
-    the index advanced.  A period boundary is another
-    (:meth:`period_body`: ``controller_window_apply``, the carry and
-    ``active_size`` copied back, the ``TracedUpdate`` written at a period
-    index).  With ``graphs`` each body is captured once as a CUDA graph and
-    a chunk replays it; without, a chunk calls it (the CPU path, and the
-    card's when the caller asks).  Inside a chunk the host neither reads
+    ``window_step`` on the chunk's carry, which it donates (the servers'
+    key-version table is updated in place), every other leaf of the new
+    carry copied back into it, the window's metrics written at a device
+    index, the index advanced.  A period boundary is another
+    (:meth:`period_body`: ``controller_window_apply``, the leaves it
+    changed and ``active_size`` copied back, the ``TracedUpdate`` written
+    at a period index).  ``copy_back_bytes`` holds the bytes each body
+    copies back a call (``"window"``, ``"period"``), counted on the host.
+    With ``graphs`` each body is captured once as a CUDA graph and a chunk
+    replays it; without, a chunk calls it (the CPU path, and the card's
+    when the caller asks).  Inside a chunk the host neither reads
     nor copies anything.
 
     * Host changes between chunks are seen: at each chunk start the
@@ -540,12 +556,14 @@ class CompiledChunk:
         self.capture_seconds = 0.0            # warm-ups and captures
         self.captures = 0
         self.graph_bytes: dict[str, int] = {}  # memory reserved by capture
+        self.copy_back_bytes: dict[str, int] = {}  # carry copied a body
 
     # -- one window and one period boundary of the chunk's carry ----------
-    def step(self, wl: WorkloadArrays, carry: SimCarry,
+    def step(self, wl: WorkloadArrays, carry: SimCarry, donate: bool = False,
              ) -> tuple[SimCarry, WindowMetrics]:
+        """One window (``donate``: only for the chunk's own carry)."""
         return window_step(self.cfg, self.server_cfg, self.client_cfg,
-                           self.key_size, wl, carry)
+                           self.key_size, wl, carry, donate)
 
     def apply(self, wl: WorkloadArrays, carry: SimCarry,
               active: torch.Tensor):
@@ -558,8 +576,8 @@ class CompiledChunk:
 
     # -- the bodies ---------------------------------------------------------
     def window_body(self) -> None:
-        new, m = self.step(self.wl, self.carry)
-        _copy_tree_(self.carry, new)
+        new, m = self.step(self.wl, self.carry, donate=True)
+        self.copy_back_bytes["window"] = _copy_tree_(self.carry, new)
         if self.metrics is None:
             self.metrics = _rows(m, self.w_cap)
         _write_row_(self.metrics, m, self.w_idx)
@@ -567,8 +585,8 @@ class CompiledChunk:
 
     def period_body(self) -> None:
         new, act, upd = self.apply(self.wl, self.carry, self.active)
-        _copy_tree_(self.carry, new)
-        _copy_tree_(self.active, act)
+        self.copy_back_bytes["period"] = (_copy_tree_(self.carry, new)
+                                          + _copy_tree_(self.active, act))
         if self.updates is None:
             self.updates = _rows(upd, self.p_cap)
         _write_row_(self.updates, upd, self.p_idx)
