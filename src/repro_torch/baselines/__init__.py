@@ -6,6 +6,7 @@ policy differs.  Neither runs a kernel: their switch passes are a few
 element-wise ops per subround.
 """
 from .netcache import (  # noqa: F401
-    NetCacheState, init_netcache, netcache_install, netcache_step,
+    NetCacheState, counted_netcache_step, init_netcache, netcache_install,
+    netcache_step,
 )
 from .nocache import nocache_step  # noqa: F401

@@ -86,6 +86,13 @@ def netcache_step(st: NetCacheState, pkts: PacketBatch):
     marks the R-REQ lanes the switch answers, ``n_hit`` (int32) counts
     them.
     """
+    return counted_netcache_step(st, pkts)[:5]
+
+
+def counted_netcache_step(st: NetCacheState, pkts: PacketBatch):
+    """:func:`netcache_step`, and the batch's write-path counts, int32[3]:
+    W-REQs that invalidated a cached entry, W-REPs that refreshed one, and
+    R-REQs of a cached key forwarded because its entry was invalid."""
     op, valid = pkts.op, pkts.valid
     slot = _match(st, pkts.hkey)
     hit = (slot >= 0) & valid
@@ -99,7 +106,8 @@ def netcache_step(st: NetCacheState, pkts: PacketBatch):
     passthru = valid & ((op == OP_CRN_REQ) | (op == OP_F_REQ))
 
     entry_valid = st.valid[safe] & hit
-    switch_reply = r_req & hit & entry_valid
+    r_hit = r_req & hit
+    switch_reply = r_hit & entry_valid
     n_hit = torch.sum(switch_reply, dtype=I32)
 
     # writes invalidate (and bump the version), then write through to the
@@ -131,7 +139,9 @@ def netcache_step(st: NetCacheState, pkts: PacketBatch):
 
     st2 = st._replace(valid=valid_arr, version=version, val=val, vlen=vlen,
                       hits=sat_add(st.hits, n_hit))
-    return st2, route, flag, switch_reply, n_hit
+    counts = torch.sum(torch.stack([w_cached, install & w_rep,
+                                    r_hit & ~entry_valid]), dim=1, dtype=I32)
+    return st2, route, flag, switch_reply, n_hit, counts
 
 
 def netcache_install(st: NetCacheState, keys: np.ndarray, vlens: np.ndarray,

@@ -99,6 +99,14 @@ def subround_pipeline(carry: PipelineCarry, pkts: PacketBatch,
                       recirc_packets: torch.Tensor, max_serves: int,
                       ) -> tuple[PipelineCarry, SubroundOut]:
     """One fused ingress pass + orbit serving round (paper Fig. 4)."""
+    return _subround(carry, pkts, recirc_packets, max_serves)[:2]
+
+
+def _subround(carry: PipelineCarry, pkts: PacketBatch,
+              recirc_packets: torch.Tensor, max_serves: int,
+              ) -> tuple[PipelineCarry, SubroundOut, torch.Tensor]:
+    """:func:`subround_pipeline`, and the W-REP lanes that re-validated a
+    cached line (their count, int32)."""
     op, valid = pkts.op, pkts.valid
     r_req = valid & (op == OP_R_REQ)
     w_req = valid & (op == OP_W_REQ)
@@ -107,11 +115,11 @@ def subround_pipeline(carry: PipelineCarry, pkts: PacketBatch,
     f_rep = valid & (op == OP_F_REP)
     f_req = valid & (op == OP_F_REQ)
     crn = valid & (op == OP_CRN_REQ)
+    refresh = (w_rep | f_rep) & (pkts.flag >= 1)  # replies carrying a value
 
     lk, st, rt_, orb = carry.lookup, carry.state, carry.reqtab, carry.orbit
     k = kn.subround(
-        pkts.hkey, r_req.to(I32), w_req.to(I32),
-        ((w_rep | f_rep) & (pkts.flag >= 1)).to(I32),
+        pkts.hkey, r_req.to(I32), w_req.to(I32), refresh.to(I32),
         torch.where(f_rep, pkts.seq, 0),   # F-REP: seq carries the fragment
         torch.clamp(pkts.flag, min=1),     # FLAG carries the fragment count
         pkts.kidx, pkts.vlen, pkts.client, pkts.seq, pkts.port, pkts.ts,
@@ -131,7 +139,7 @@ def subround_pipeline(carry: PipelineCarry, pkts: PacketBatch,
     r_hit = r_req & hit
     invalid_fwd = r_hit & ~entry_valid
     w_cached = w_req & hit
-    install = (w_rep | f_rep) & hit & (pkts.flag >= 1)
+    install = refresh & hit
     flag_out = torch.where(w_cached, 1, pkts.flag).to(I32)
 
     n_hit = _count(r_hit)
@@ -186,7 +194,8 @@ def subround_pipeline(carry: PipelineCarry, pkts: PacketBatch,
     )
     return carry3, SubroundOut(route=route, flag=flag_out, grid=grid,
                                stats=stats, val_writer=k.val_writer,
-                               val_written=k.val_written > 0)
+                               val_written=k.val_written > 0), \
+        _count(install & w_rep)
 
 
 def install_window_values(val: torch.Tensor, batch_val: torch.Tensor,
@@ -267,17 +276,32 @@ def window_pipeline(sw: SwitchState, sub: PacketBatch, *, recirc_gbps: float,
     """One window: the fused pass over each subround of the [R, L] ingress,
     then the value install.  Returns ``(sw', outs, intervals_us)`` with the
     subround axis leading in ``outs`` and ``intervals_us``."""
+    return counted_window_pipeline(
+        sw, sub, recirc_gbps=recirc_gbps, window_us=window_us,
+        subrounds=subrounds, max_serves=max_serves, key_size=key_size)[:3]
+
+
+def counted_window_pipeline(sw: SwitchState, sub: PacketBatch, *,
+                            recirc_gbps: float, window_us: float,
+                            subrounds: int, max_serves: int, key_size: int,
+                            ) -> tuple[SwitchState, SubroundOut, torch.Tensor,
+                                       torch.Tensor]:
+    """:func:`window_pipeline`, and each subround's W-REP lanes that
+    re-validated a cached line (int32[R]): the write path's validations,
+    which ``stats.n_install`` counts together with the F-REPs."""
     carry, val = strip_val(sw)
-    outs, intervals = [], []
+    outs, intervals, validated = [], [], []
     for r in range(sub.op.shape[0]):
         pk = PacketBatch(*(a[r] for a in sub))
         budget, interval_us = recirc_budget(
             carry.orbit.live, carry.orbit.vlen, recirc_gbps=recirc_gbps,
             window_us=window_us, subrounds=subrounds, key_size=key_size)
-        carry, out = subround_pipeline(carry, pk, budget, max_serves)
+        carry, out, n_valid = _subround(carry, pk, budget, max_serves)
         outs.append(out)
         intervals.append(interval_us)
+        validated.append(n_valid)
     outs = _stack(outs)
     val = install_window_values(val, sub.val, outs.val_writer,
                                 outs.val_written)
-    return with_val(carry, val), outs, torch.stack(intervals)
+    return (with_val(carry, val), outs, torch.stack(intervals),
+            torch.stack(validated))

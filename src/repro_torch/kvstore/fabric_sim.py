@@ -506,6 +506,7 @@ class FabricChunk(CompiledChunk):
                          graphs)
         self.fcfg = fcfg
         self.n_points = n_points
+        self.sink = None            # a fabric window keeps no counts
         lead = () if n_points is None else (n_points,)
         self.active = (torch.zeros(lead + (fcfg.n_racks,), dtype=I32,
                                    device=device),

@@ -45,8 +45,8 @@ from . import client as cl
 from .simulator import (
     CompiledChunk, RackConfig, SimCarry, SimResult, WindowMetrics,
     build_fetch_batch, chunk_graphs, chunked_run, controller_window_apply,
-    init_carry, make_client_config, make_server_config, period_windows,
-    tree_stack, tree_take, window_step,
+    counting, init_carry, make_client_config, make_server_config,
+    period_windows, tree_stack, tree_take, window_step, write_path_of,
 )
 from .workload import Workload, WorkloadArrays
 
@@ -85,22 +85,25 @@ class FleetDraws:
 def fleet_window_step(cfg: RackConfig, server_cfg, client_cfg, key_size: int,
                       wl: WorkloadArrays, wl_dims: WorkloadArrays,
                       carry: SimCarry, donate: bool = False,
+                      counts: torch.Tensor | None = None,
                       ) -> tuple[SimCarry, WindowMetrics]:
     """One window of every point: the draws per point, then ``window_step``
     vmapped over the point axis (``wl_dims``: 0 for a stacked workload
-    leaf, None for a shared one; ``donate`` as ``window_step``'s).  The
-    carry's ``draws`` is a :class:`FleetDraws`; every other leaf and the
-    metrics are ``[P, ...]``."""
+    leaf, None for a shared one; ``donate`` and ``counts`` as
+    ``window_step``'s).  The carry's ``draws`` is a :class:`FleetDraws`;
+    every other leaf, the metrics and ``counts`` are ``[P, ...]``."""
     n, u, w = carry.draws.draw_all(carry.offered, client_cfg.batch)
 
-    def one(wl_i, carry_i, n_i, u_i, w_i):
-        new, m = window_step(cfg, server_cfg, client_cfg, key_size, wl_i,
-                             carry_i._replace(
-                                 draws=cl.GivenDraws(n_i, u_i, w_i)), donate)
+    def one(wl_i, carry_i, n_i, u_i, w_i, counts_i):
+        new, m = window_step(
+            cfg, server_cfg, client_cfg, key_size, wl_i,
+            carry_i._replace(draws=cl.GivenDraws(n_i, u_i, w_i)), donate,
+            counts_i)
         return new._replace(draws=()), m
 
-    new, m = torch.func.vmap(one, in_dims=(wl_dims, 0, 0, 0, 0))(
-        wl, carry._replace(draws=()), n, u, w)
+    new, m = torch.func.vmap(
+        one, in_dims=(wl_dims, 0, 0, 0, 0, None if counts is None else 0))(
+        wl, carry._replace(draws=()), n, u, w, counts)
     return new._replace(draws=carry.draws), m
 
 
@@ -132,6 +135,8 @@ class FleetChunk(CompiledChunk):
         super().__init__(cfg, server_cfg, client_cfg, key_size, device,
                          graphs)
         self.active = torch.zeros(n_points, dtype=I32, device=device)
+        if self.sink is not None:
+            self.sink = torch.zeros(n_points, 3, dtype=I32, device=device)
         self.wl_dims: WorkloadArrays | None = None
 
     def set_wl_dims(self, dims: WorkloadArrays) -> None:
@@ -144,7 +149,7 @@ class FleetChunk(CompiledChunk):
     def step(self, wl, carry, donate=False):
         return fleet_window_step(self.cfg, self.server_cfg, self.client_cfg,
                                  self.key_size, wl, self.wl_dims, carry,
-                                 donate)
+                                 donate, self.sink)
 
     def apply(self, wl, carry, active):
         return fleet_controller_apply(self.cfg, self.ctrl_cfg, wl,
@@ -373,9 +378,11 @@ class BatchedRackSimulator:
         c = self.cfg
         total = int(round(sim_seconds / (c.window_us * 1e-6)))
         period_w = period_windows(controller_period_s, c.window_us)
+        counts = []
+        windows, periods = counting(self.chunk, counts, self.run_windows,
+                                    self.run_periods)
         traces = chunked_run(total, chunk_windows, period_w,
-                             c.scheme == "orbitcache", self.run_periods,
-                             self.run_windows)
+                             c.scheme == "orbitcache", periods, windows)
         merged = {k: np.concatenate([t[k] for t in traces], axis=1)
                   for k in traces[0]}
         cs = self.carry.clients
@@ -386,7 +393,8 @@ class BatchedRackSimulator:
                           hist_switch=hist_sw[i], hist_server=hist_srv[i],
                           info=dict(scheme=c.scheme, point=i,
                                     active_size=self.controllers[i]
-                                    .active_size))
+                                    .active_size),
+                          write_path=write_path_of(counts, i))
                 for i in range(self.n_points)]
 
 

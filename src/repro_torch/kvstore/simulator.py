@@ -29,7 +29,7 @@ import torch
 
 from repro_torch import kernels as kn
 from repro_torch.baselines import (
-    init_netcache, netcache_install, netcache_step, nocache_step,
+    counted_netcache_step, init_netcache, netcache_install, nocache_step,
 )
 from repro_torch.core import pipeline
 from repro_torch.core.controller import (
@@ -90,6 +90,13 @@ class WindowMetrics(NamedTuple):
     crn: torch.Tensor
     mismatches: torch.Tensor    # int64 (uint32 lifetime counter)
     fwd: torch.Tensor
+
+
+# The write path's counts of a window (int32[3] in this order): W-REQs
+# that invalidated a cached line, W-REPs that re-validated one, and reads
+# forwarded to their server because their line was invalid (also in
+# ``WindowMetrics.overflow``).  NoCache caches nothing: none.
+WRITE_PATH = ("invalidations", "validations", "invalid_fwd")
 
 
 class SimCarry(NamedTuple):
@@ -262,22 +269,29 @@ def generate_ingress(cfg: RackConfig, client_cfg: cl.ClientConfig,
 def window_step(cfg: RackConfig, server_cfg: ServerConfig,
                 client_cfg: cl.ClientConfig, key_size: int,
                 wl: WorkloadArrays, carry: SimCarry, donate: bool = False,
+                counts: torch.Tensor | None = None,
                 ) -> tuple[SimCarry, WindowMetrics]:
     """One window of ``carry``; ``donate``: the caller gives ``carry`` up
-    and its key-version table is updated in place (:func:`server_step`)."""
+    and its key-version table is updated in place (:func:`server_step`);
+    ``counts`` (int32[3], OrbitCache and NetCache): receives the window's
+    :data:`WRITE_PATH` counts, in place."""
     clients, reqs, sub = generate_ingress(cfg, client_cfg, wl, carry)
     return process_window(cfg, server_cfg, client_cfg, key_size, carry,
-                          clients, reqs, sub, donate)
+                          clients, reqs, sub, donate, counts)
 
 
 def process_window(cfg: RackConfig, server_cfg: ServerConfig,
                    client_cfg: cl.ClientConfig, key_size: int,
                    carry: SimCarry, clients: cl.ClientState,
                    reqs: PacketBatch, sub: PacketBatch, donate: bool = False,
+                   counts: torch.Tensor | None = None,
                    ) -> tuple[SimCarry, WindowMetrics]:
     """Run one window over the subround-major ingress ``sub`` (``donate``
-    as :func:`window_step`'s)."""
+    and ``counts`` as :func:`window_step`'s)."""
     c = cfg
+    if counts is not None and c.scheme == "nocache":
+        raise ValueError("NoCache caches nothing: it has no write-path "
+                         "counts")
     dev = sub.op.device
     f32 = lambda v: device_const(v, F32, dev)
     pad_to = sub.op.shape[0] * sub.op.shape[1]
@@ -287,7 +301,7 @@ def process_window(cfg: RackConfig, server_cfg: ServerConfig,
     switch_reply = None       # lanes the switch answered itself (NetCache)
 
     if c.scheme == "orbitcache":
-        policy, outs, intervals = pipeline.window_pipeline(
+        policy, outs, intervals, validated = pipeline.counted_window_pipeline(
             carry.policy, sub, recirc_gbps=c.recirc_gbps,
             window_us=c.window_us, subrounds=c.subrounds,
             max_serves=c.max_serves, key_size=key_size)
@@ -310,13 +324,20 @@ def process_window(cfg: RackConfig, server_cfg: ServerConfig,
         hits, installs = isum(stats.n_hit), isum(stats.n_install)
         overflow = isum(stats.n_overflow) + isum(stats.n_invalid_fwd)
         crn, rx_sw = isum(stats.n_crn), isum(stats.n_served)
+        if counts is not None:
+            counts.copy_(torch.sum(torch.stack([
+                stats.n_w_cached, validated, stats.n_invalid_fwd]),
+                dim=1, dtype=I32))
     elif c.scheme == "netcache":
         policy, ys = carry.policy, []
         for r in range(c.subrounds):          # the reference's lax.scan
-            policy, *y = netcache_step(policy,
-                                       PacketBatch(*(a[r] for a in sub)))
+            policy, *y = counted_netcache_step(
+                policy, PacketBatch(*(a[r] for a in sub)))
             ys.append(y)
-        routes, flags, sreps, n_hits = (torch.stack(x) for x in zip(*ys))
+        routes, flags, sreps, n_hits, per_sub = (torch.stack(x)
+                                                 for x in zip(*ys))
+        if counts is not None:
+            counts.copy_(torch.sum(per_sub, dim=0, dtype=I32))
         switch_reply = sreps.reshape(-1)
         hits = isum(n_hits)
         overflow, installs, crn = zero(), zero(), zero()
@@ -511,12 +532,14 @@ class CompiledChunk:
     One window is a plain function of those buffers (:meth:`window_body`):
     ``window_step`` on the chunk's carry, which it donates (the servers'
     key-version table is updated in place), every other leaf of the new
-    carry copied back into it, the window's metrics written at a device
-    index, the index advanced.  A period boundary is another
-    (:meth:`period_body`: ``controller_window_apply``, the leaves it
-    changed and ``active_size`` copied back, the ``TracedUpdate`` written
-    at a period index).  ``copy_back_bytes`` holds the bytes each body
-    copies back a call (``"window"``, ``"period"``), counted on the host.
+    carry copied back into it, the window's metrics (and, where the scheme
+    has them, its :data:`WRITE_PATH` counts from ``sink``,
+    :meth:`write_path`) written at a device index, the index advanced.  A
+    period boundary is another (:meth:`period_body`:
+    ``controller_window_apply``, the leaves it changed and ``active_size``
+    copied back, the ``TracedUpdate`` written at a period index).
+    ``copy_back_bytes`` holds the bytes each body copies back a call
+    (``"window"``, ``"period"``), counted on the host.
     With ``graphs`` each body is captured once as a CUDA graph and a chunk
     replays it; without, a chunk calls it (the CPU path, and the card's
     when the caller asks).  Inside a chunk the host neither reads
@@ -547,6 +570,9 @@ class CompiledChunk:
         self.device = device
         self.graphs = graphs
         self.carry = self.wl = self.metrics = self.updates = None
+        self.counts = None                    # write-path rows [w_cap, 3]
+        self.sink = (None if cfg.scheme == "nocache"   # a window's counts
+                     else torch.zeros(3, dtype=I32, device=device))
         self.ctrl_cfg = None
         self.w_idx = torch.zeros(1, dtype=torch.int64, device=device)
         self.p_idx = torch.zeros(1, dtype=torch.int64, device=device)
@@ -561,9 +587,10 @@ class CompiledChunk:
     # -- one window and one period boundary of the chunk's carry ----------
     def step(self, wl: WorkloadArrays, carry: SimCarry, donate: bool = False,
              ) -> tuple[SimCarry, WindowMetrics]:
-        """One window (``donate``: only for the chunk's own carry)."""
+        """One window (``donate``: only for the chunk's own carry), its
+        write-path counts into ``sink``."""
         return window_step(self.cfg, self.server_cfg, self.client_cfg,
-                           self.key_size, wl, carry, donate)
+                           self.key_size, wl, carry, donate, self.sink)
 
     def apply(self, wl: WorkloadArrays, carry: SimCarry,
               active: torch.Tensor):
@@ -581,6 +608,10 @@ class CompiledChunk:
         if self.metrics is None:
             self.metrics = _rows(m, self.w_cap)
         _write_row_(self.metrics, m, self.w_idx)
+        if self.sink is not None:
+            if self.counts is None:
+                self.counts = _rows(self.sink, self.w_cap)
+            _write_row_(self.counts, self.sink, self.w_idx)
         self.w_idx += 1
 
     def period_body(self) -> None:
@@ -638,13 +669,20 @@ class CompiledChunk:
         else:
             _copy_tree_(self.wl, wl)
         if n_windows > self.w_cap:
-            self.w_cap, self.metrics = n_windows, None
+            self.w_cap, self.metrics, self.counts = n_windows, None, None
             self._graphs.pop("window", None)
         if n_periods > self.p_cap:
             self.p_cap, self.updates = n_periods, None
             self._graphs.pop("period", None)
         self.w_idx.zero_()
         self.p_idx.zero_()
+
+    def write_path(self, n: int) -> np.ndarray | None:
+        """The last chunk's :data:`WRITE_PATH` counts of its ``n`` windows
+        on the host, int32 ``[n, ..., 3]``; None for NoCache."""
+        if self.counts is None:
+            return None
+        return self.counts[:n].to("cpu", copy=True).numpy()
 
     def _run(self, name: str, body, n: int) -> None:
         if not self.graphs:
@@ -713,14 +751,44 @@ def compiled_chunk(cfg: RackConfig, server_cfg: ServerConfig,
                          chunk_graphs(device, graphs))
 
 
+def write_path_of(chunks: list, point: int | None = None) -> dict:
+    """``{name: int32[windows]}`` of a run's chunks
+    (:meth:`CompiledChunk.write_path`, of fleet point ``point``), or {}
+    where the scheme has no counts."""
+    if not chunks or chunks[0] is None:
+        return {}
+    rows = np.concatenate(chunks)
+    if point is not None:
+        rows = rows[:, point]
+    return {k: rows[:, j].copy() for j, k in enumerate(WRITE_PATH)}
+
+
+def counting(chunk: CompiledChunk, chunks: list, run_windows_fn,
+             run_periods_fn):
+    """``run_windows_fn`` and ``run_periods_fn`` that also append each
+    chunk's write-path counts to ``chunks``."""
+    def windows(n):
+        traces = run_windows_fn(n)
+        chunks.append(chunk.write_path(n))
+        return traces
+
+    def periods(n_periods, period_w):
+        traces = run_periods_fn(n_periods, period_w)
+        chunks.append(chunk.write_path(n_periods * period_w))
+        return traces
+    return windows, periods
+
+
 @dataclass
 class SimResult:
-    """Host-side aggregation of a run."""
+    """Host-side aggregation of a run; ``write_path`` holds the run's
+    :data:`WRITE_PATH` counts a window (OrbitCache, NetCache)."""
     window_us: float
     traces: dict[str, np.ndarray] = field(default_factory=dict)
     hist_switch: np.ndarray | None = None
     hist_server: np.ndarray | None = None
     info: dict = field(default_factory=dict)
+    write_path: dict[str, np.ndarray] = field(default_factory=dict)
 
     def throughput_rps(self, burn_frac: float = 0.25) -> float:
         rx = self.traces["rx_switch"] + self.traces["rx_server"]
@@ -878,9 +946,12 @@ class RackSimulator:
         c = self.cfg
         total_windows = int(round(sim_seconds / (c.window_us * 1e-6)))
         period_w = period_windows(controller_period_s, c.window_us)
+        counts = []
+        windows, periods = counting(self.chunk, counts, self.run_windows,
+                                    self.run_periods)
         traces = chunked_run(
             total_windows, chunk_windows, period_w,
-            c.scheme == "orbitcache", self.run_periods, self.run_windows,
+            c.scheme == "orbitcache", periods, windows,
             on_period=(lambda w: on_period(self, w)) if on_period else None)
         merged = {k: np.concatenate([t[k] for t in traces], axis=0)
                   for k in traces[0]}
@@ -890,7 +961,8 @@ class RackSimulator:
             hist_switch=to_numpy(cs.hist_switch, "hist_switch"),
             hist_server=to_numpy(cs.hist_server, "hist_server"),
             info=dict(scheme=c.scheme,
-                      active_size=self.controller.active_size))
+                      active_size=self.controller.active_size),
+            write_path=write_path_of(counts))
 
     def _control_plane_update(self) -> None:
         """Host-side cache update (switch counters + server top-k reports,
