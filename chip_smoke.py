@@ -12,9 +12,10 @@ line.  With no argument, the phases, each printed on its own
 line; any failure exits non-zero:
 
 1. device: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: ``nvcc`` compiles the four kernels for sm_90a, one process per
+2. build: ``nvcc`` compiles the five kernels for sm_90a, one process per
    source, all started together (``kernels/{subround,cms,hot_gather,
-   orbit_match}/kernel.cu``), and prints ``ptxas``'s report for each;
+   orbit_match,reply_values}/kernel.cu``), and prints ``ptxas``'s report
+   for each;
 3. each kernel against its plain version on the card over fuzz cases,
    the shapes of the paper's rack and cases aimed at its design (exactly;
    bf16 ``hot_gather`` rows within rtol = atol = 2e-2, float32 rows with
@@ -27,6 +28,13 @@ line; any failure exits non-zero:
    host's cost of issuing a call, which ``ms`` reads wherever the kernel is
    faster than it); the wrapper's and the plain version's ms; for
    ``hot_gather``, the library's two calls beside it, read both ways;
+   ``reply_values`` (``reply_values_vs_plain``) exactly at the paper
+   fleet's window (12 points x 32 servers x 10 lanes x 1,438 bytes), one
+   rack's and ragged shapes, batched and alone, timed at the first two
+   on the paper's value mix, every byte under its value, and random
+   lengths.  Every window of every path below launches ``reply_values``
+   once (its servers' replies, all points and racks of the window in one
+   launch); ``composed_vs_fused`` twice (both sides run the servers);
 4. main path at the paper's scale (``configs/orbitcache_paper.py``: 10M
    keys, C = 128, 32 servers, 4M rps offered): preload the 128 hottest
    keys, run 1,000 windows through ``RackSimulator.run``, each window a
@@ -61,8 +69,8 @@ line; any failure exits non-zero:
    window with the launches counted;
 7. the compared schemes on the paper rack: NoCache, and NetCache with the
    10,000 hottest keys preloaded, 500 graphed windows each
-   (``serve_kv.py``'s 0.05 s); neither may launch a kernel or run a plain
-   version; their first 100 windows graphed and as eager chunks must be
+   (``serve_kv.py``'s 0.05 s); neither may launch a kernel but
+   ``reply_values``, once a window, or run a plain version; their first 100 windows graphed and as eager chunks must be
    equal (``graphed_vs_eager``).  Then 64 windows of each from one carry and
    one set of numpy-made draws, once on the card and once on the CPU:
    every carry leaf and metric equal;
@@ -92,7 +100,8 @@ line; any failure exits non-zero:
    point's hot set) for OrbitCache, NetCache (each point's 10,000 hottest
    keys) and NoCache, ``run(0.03)`` each, every point equal to its serial
    rack and its post-window invariants holding against its preload
-   (``analysis.invariants``); NetCache and NoCache launch no kernel;
+   (``analysis.invariants``); NetCache and NoCache launch no kernel but
+   ``reply_values``;
 13. the fabric's kernel launches (``fabric_batched_vs_plain``):
    ``subround`` and ``cms`` under two vmap levels (3 points x 4 racks at
    the paper fabric rack's shapes, inputs batched at both levels or the
@@ -133,7 +142,9 @@ line; any failure exits non-zero:
    and carry leaf equal, each window; then ``switch_step`` against the
    composed seed step on the four edge cases (zero budget, full queues,
    multi-fragment lines, all-invalid ingress), 17 steps; no plain version
-   runs, and only OrbitCache's fused side launches (96 + 17 ``subround``);
+   runs, and only OrbitCache's fused side launches ``subround`` (96 +
+   17), while both sides of every window launch ``reply_values`` (48 a
+   scheme);
 17. ``ring_stacked``: ``StackedRing(8)`` from the start of
    ``tests/test_distributed_ring.py`` over a revolution, equal on the
    card and on the CPU leaf for leaf; every request served once with its
@@ -929,6 +940,108 @@ def time_hot_gather(dev, yardsticks=True):
 
 
 # --------------------------------------------------------------------------
+# reply_values kernel
+# --------------------------------------------------------------------------
+# (points, servers, lanes a server, fragments, pad): the paper fleet's
+# window (12 points of the paper rack), one paper rack, and ragged shapes
+RV_PAPER, RV_RACK = (12, 32, 10, 1, 1438), (1, 32, 10, 1, 1438)
+RV_RAGGED = ((3, 5, 7, 3, 37), (2, 3, 3, 2, 5), (1, 1, 1, 1, 1),
+             (5, 2, 9, 2, 1000))
+RV_MIXES = ("paper", "full", "random")
+
+
+def rv_lanes(shape, mix, seed, dev):
+    """int32 ``kidx``, ``version``, ``vlen`` and bool ``carries``
+    [P, n, cap] of one call.  ``paper``: values of 64 B (82 %) or 1,024 B,
+    every lane carrying one (the paper rack's reads); ``full``: every byte
+    under its value (the most hashing); ``random``: lengths over [-3,
+    (F + 1) pad + 3), a quarter of the lanes carrying none."""
+    p, n, cap, f, pad = shape
+    rng = np.random.default_rng(seed)
+    sh = (p, n, cap)
+    k = rng.integers(-2**31, 2**31, sh)
+    v = rng.integers(0, 2**31, sh) if mix != "random" else \
+        rng.integers(-2**31, 2**31, sh)
+    if mix == "paper":
+        vl, c = np.where(rng.random(sh) < 0.82, 64, 1024), np.ones(sh, bool)
+    elif mix == "full":
+        vl, c = np.full(sh, f * pad), np.ones(sh, bool)
+    else:
+        vl, c = rng.integers(-3, (f + 1) * pad + 3, sh), rng.random(sh) < 0.75
+    t = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
+    return t(k), t(v), t(vl), torch.from_numpy(c).to(dev)
+
+
+def check_reply_values(dev):
+    """The kernel against the plain version on the card, exactly: every
+    mix at the paper fleet's and one rack's shapes, the ragged shapes,
+    batched (one launch) and one point alone, and with inputs the points
+    share.  Returns the cases checked."""
+    from repro_torch import kernels as kn
+    from repro_torch.kernels.reply_values import ops
+    from repro_torch.kernels.reply_values.ref import reply_values_ref
+
+    n_cases = 0
+    for i, shape in enumerate((RV_PAPER, RV_RACK) + RV_RAGGED):
+        p, n, cap, f, pad = shape
+        for j, mix in enumerate(RV_MIXES):
+            args = rv_lanes(shape, mix, 100 * i + j, dev)
+            for shared in ((), (1, 3)):
+                a = [x[0] if m in shared else x for m, x in enumerate(args)]
+                want = reply_values_ref(*(x if x.dim() == 3 else
+                                          x.expand(p, n, cap) for x in a),
+                                        f, pad)
+                kn.reset_launch_counts()
+                got = ops.reply_values_batched(*a, p, f, pad)
+                one = ops.reply_values(*(x if x.dim() == 2 else x[-1]
+                                         for x in a), f, pad)
+                torch.cuda.synchronize()
+                if kn.LAUNCHES["reply_values"] != 2:
+                    raise AssertionError(f"reply_values launched "
+                                         f"{kn.LAUNCHES['reply_values']}")
+                if not (torch.equal(got, want) and torch.equal(one,
+                                                               want[-1])):
+                    raise AssertionError(f"reply_values != plain at "
+                                         f"{shape}, {mix}, shared {shared}")
+                n_cases += 1
+    return n_cases
+
+
+def time_reply_values(dev):
+    """Device µs per launch at the paper fleet's and one rack's shapes on
+    each mix, beside the bound (output bytes written once, inputs read
+    once, at 3.35 TB/s), the launch floor, the host's issue cost, the
+    wrapper's and the plain version's ms."""
+    from repro_torch.kernels.reply_values import kernel, ops
+    from repro_torch.kernels.reply_values.ref import reply_values_ref
+
+    rows = []
+    for shape in (RV_PAPER, RV_RACK):
+        p, n, cap, f, pad = shape
+        lanes = n * cap
+        for j, mix in enumerate(RV_MIXES):
+            args = rv_lanes(shape, mix, 7 + j, dev)
+            out = torch.empty((p, lanes * f, pad), dtype=torch.uint8,
+                              device=dev)
+            ptrs = [x for a in args for x in (a.data_ptr(), lanes)]
+
+            def launch(stream, empty=False):
+                kernel.launch(*ptrs, out.data_ptr(), p, lanes, f, pad,
+                              stream, empty=empty)
+
+            t = kernel_times(
+                launch, lambda st: launch(st, True),
+                lambda: ops.reply_values_batched(*args, p, f, pad),
+                lambda: reply_values_ref(*args, f, pad))
+            hashed = int(torch.clamp(args[2], 0, f * pad)[args[3]].sum())
+            rows.append(dict(shape=dict(zip(("p", "n", "cap", "f", "pad"),
+                                            shape)), mix=mix,
+                             hashed_bytes=hashed, **t,
+                             **bound(out.numel() + 13 * p * lanes, 0)))
+    return rows
+
+
+# --------------------------------------------------------------------------
 # orbit_match kernel
 # --------------------------------------------------------------------------
 # lanes and entries of the fuzz cases; None is one subround's ingress of
@@ -1132,13 +1245,15 @@ def counting_plain_versions():
     from repro_torch.kernels.cms import ref as cms_ref
     from repro_torch.kernels.hot_gather import ref as hg_ref
     from repro_torch.kernels.orbit_match import ref as om_ref
+    from repro_torch.kernels.reply_values import ref as rv_ref
     from repro_torch.kernels.subround import ref as sr_ref
 
     targets = {"subround": (sr_ref, "subround_ref"),
                "cms": (cms_ref, "cms_update_query_fast"),
                "cms_one_hot": (cms_ref, "cms_update_query_ref"),
                "hot_gather": (hg_ref, "hot_gather_ref"),
-               "orbit_match": (om_ref, "orbit_match_ref")}
+               "orbit_match": (om_ref, "orbit_match_ref"),
+               "reply_values": (rv_ref, "reply_values_ref")}
     calls = {k: 0 for k in targets}
     real = {k: getattr(m, f) for k, (m, f) in targets.items()}
 
@@ -1190,6 +1305,10 @@ def run_main_path(dev):
         if n_win != WINDOWS or launches != RACK.subrounds * WINDOWS:
             raise AssertionError(f"{launches} subround launches in {n_win} "
                                  f"windows; want {RACK.subrounds} per window")
+        if kn.LAUNCHES["reply_values"] != WINDOWS:
+            raise AssertionError(f"{kn.LAUNCHES['reply_values']} reply_values"
+                                 f" launches in {n_win} windows; want 1 per "
+                                 f"window")
         if any(plain_calls.values()):
             raise AssertionError(f"plain versions ran on the kernel path: "
                                  f"{plain_calls}")
@@ -1309,7 +1428,7 @@ def run_control_plane(dev):
     n_win = CP_PHASES * int(round(CP_PHASE_S / (rack.window_us * 1e-6)))
     n_periods = n_win // period_w
     want = {"subround": rack.subrounds * n_win, "cms": n_win,
-            "hot_gather": 3 * n_periods}
+            "hot_gather": 3 * n_periods, "reply_values": n_win}
     with counting_plain_versions() as plain_calls:
         kn.reset_launch_counts()
         torch.cuda.synchronize()
@@ -1389,7 +1508,7 @@ def run_control_plane(dev):
                         in e.key) for k in want}
     us_by_kernel = {k: device_us(dev_events, f"{k}_kernel") for k in want}
     if by_kernel != {"subround": rack.subrounds * pw, "cms": pw,
-                     "hot_gather": 3}:
+                     "hot_gather": 3, "reply_values": pw}:
         raise AssertionError(f"profiler saw {by_kernel} in one period")
     busy_eager = busy_per_window(None, pw, dev_events, prof_wall)
     phase("control_plane_profile", windows=pw,
@@ -1463,7 +1582,7 @@ def run_hot_gather_live(sim, period_w):
 
 def run_schemes(dev):
     """NoCache and NetCache on the paper's rack (module docstring, phase
-    7)."""
+    7): returns the reply_values launches of their timed runs."""
     from repro_torch import kernels as kn
     from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
     from repro_torch.interop import to_numpy
@@ -1473,6 +1592,7 @@ def run_schemes(dev):
 
     wl = Workload(WORKLOAD, device=dev)
     wl_cpu = Workload(WORKLOAD, device="cpu")
+    rv_launches = 0
     for i, scheme in enumerate(("nocache", "netcache")):
         rack = dataclasses.replace(RACK, scheme=scheme)
         sim = RackSimulator(rack, wl)
@@ -1489,9 +1609,12 @@ def run_schemes(dev):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
-        if any(launches.values()) or any(calls.values()):
+        # the servers' reply values are the only kernel of these schemes
+        if (launches != dict.fromkeys(launches, 0) | {"reply_values": n_win}
+                or any(calls.values())):
             raise AssertionError(f"{scheme} launched {launches} and ran "
                                  f"plain versions {calls}")
+        rv_launches += n_win
         rx_sw = res.traces["rx_switch"].astype(np.int64).sum()
         rx_srv = res.traces["rx_server"].astype(np.int64).sum()
         hits = int(res.traces["hits"].astype(np.int64).sum())
@@ -1566,6 +1689,7 @@ def run_schemes(dev):
               equal_metrics=len(m_dev), cpu_seconds=round(cpu_s, 3),
               hits=int(m_dev["hits"].astype(np.int64).sum()),
               forwarded=int(m_dev["fwd"].astype(np.int64).sum()))
+    return rv_launches
 
 
 # --------------------------------------------------------------------------
@@ -1885,8 +2009,8 @@ def fleet_rates(n_win, wall, capture_s, p, serial_wps, busy):
 
 
 def run_fleet_staircase(dev):
-    """``fleet_staircase`` (module docstring): returns the subround
-    launches of its run."""
+    """``fleet_staircase`` (module docstring): returns the launches of
+    its run by kernel."""
     from repro_torch import kernels as kn
     from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
     from repro_torch.interop import to_numpy
@@ -1914,7 +2038,8 @@ def run_fleet_staircase(dev):
         calls = dict(plain_calls)
     n_win = len(res[0].traces["tx"])
     if launches != dict(subround=RACK.subrounds * n_win, cms=0,
-                        hot_gather=0, orbit_match=0) or any(calls.values()):
+                        hot_gather=0, orbit_match=0,
+                        reply_values=n_win) or any(calls.values()):
         raise AssertionError(f"fleet staircase launched {launches} and ran "
                              f"plain versions {calls} in {n_win} windows; "
                              f"want {RACK.subrounds} subround a window")
@@ -1978,7 +2103,7 @@ def run_fleet_staircase(dev):
           plain_seconds=round(wall_ref, 3), plain_equal_leaves=n_ref,
           plain_equal_outputs=n_out_ref)
     fleet_no_sync("fleet_staircase", fleet)
-    return launches["subround"]
+    return launches
 
 
 def stair_row(res, burn_frac=0.3):
@@ -2050,7 +2175,7 @@ def run_fleet_control_plane(dev):
     n_win = CP_PHASES * int(round(CP_PHASE_S / (rack.window_us * 1e-6)))
     n_periods = n_win // period_w
     want = dict(subround=rack.subrounds * n_win, cms=n_win,
-                hot_gather=3 * n_periods, orbit_match=0)
+                hot_gather=3 * n_periods, orbit_match=0, reply_values=n_win)
     with counting_plain_versions() as plain_calls:
         kn.reset_launch_counts()
         cap0 = fleet.chunk.capture_seconds
@@ -2159,8 +2284,8 @@ def run_fleet_control_plane(dev):
 
 
 def run_fleet_skew(dev, held=None):
-    """``fleet_skew`` (module docstring): returns the subround launches of
-    its OrbitCache run.  ``held`` (a dict) gets the points whose
+    """``fleet_skew`` (module docstring): returns the ``subround`` and
+    ``reply_values`` launches of its runs.  ``held`` (a dict) gets the points whose
     invariants held."""
     from repro_torch import kernels as kn
     from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
@@ -2172,7 +2297,7 @@ def run_fleet_skew(dev, held=None):
     p = len(SKEW_ALPHAS)
     wls = [Workload(dataclasses.replace(WORKLOAD, zipf_alpha=a), device=dev)
            for a in SKEW_ALPHAS]
-    sub_launches = 0
+    sub_launches = dict(subround=0, reply_values=0)
     for scheme in ("orbitcache", "netcache", "nocache"):
         rack = dataclasses.replace(RACK, scheme=scheme)
         k = rack.cache_entries if scheme == "orbitcache" else \
@@ -2195,11 +2320,12 @@ def run_fleet_skew(dev, held=None):
         del before
         n_win = len(res[0].traces["tx"])
         want = dict(subround=rack.subrounds * n_win * (scheme == "orbitcache"),
-                    cms=0, hot_gather=0, orbit_match=0)
+                    cms=0, hot_gather=0, orbit_match=0, reply_values=n_win)
         if launches != want or any(calls.values()):
             raise AssertionError(f"skew {scheme} launched {launches} and ran "
                                  f"plain versions {calls}; want {want}")
-        sub_launches += launches["subround"]
+        for k in sub_launches:
+            sub_launches[k] += launches[k]
         if scheme == "netcache" and not min(fleet._installed) > 0:
             raise AssertionError(f"skew netcache installed "
                                  f"{fleet._installed}")
@@ -2259,14 +2385,18 @@ def run_fleet(dev, held=None):
     stair = run_fleet_staircase(dev)
     cp = run_fleet_control_plane(dev)
     skew = run_fleet_skew(dev, held)
-    by_path = dict(subround=dict(fleet_staircase=stair,
+    by_path = dict(subround=dict(fleet_staircase=stair["subround"],
                                  fleet_control_plane=cp["subround"],
-                                 fleet_skew=skew),
+                                 fleet_skew=skew["subround"]),
                    cms=dict(fleet_staircase=0,
                             fleet_control_plane=cp["cms"], fleet_skew=0),
                    hot_gather=dict(fleet_staircase=0,
                                    fleet_control_plane=cp["hot_gather"],
-                                   fleet_skew=0))
+                                   fleet_skew=0),
+                   reply_values=dict(
+                       fleet_staircase=stair["reply_values"],
+                       fleet_control_plane=cp["reply_values"],
+                       fleet_skew=skew["reply_values"]))
     batched = dict(
         subround=(err_sr, {r["p"]: r["device_us"] for r in t_sr["batched"]}),
         cms=(err_cms, {r["p"]: r["device_us"] for r in t_cms["batched"]}),
@@ -2591,7 +2721,7 @@ def run_fabric_paper(dev, held=None):
     n_win = len(sp["remote"])
     n_periods = n_win // period_w
     want = dict(subround=2 * rack.subrounds * n_win, cms=n_win,
-                hot_gather=6 * n_periods, orbit_match=0)
+                hot_gather=6 * n_periods, orbit_match=0, reply_values=n_win)
     if launches != want or any(calls.values()):
         raise AssertionError(f"fabric_paper launched {launches} and ran "
                              f"plain versions {calls}; want {want}")
@@ -2781,7 +2911,7 @@ def run_fabric_locality(dev):
             capture_s = bf.chunk.capture_seconds - cap0
             launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
         want = dict(subround=2 * cfg.subrounds * n * (scheme == "orbitcache"),
-                    cms=0, hot_gather=0, orbit_match=0)
+                    cms=0, hot_gather=0, orbit_match=0, reply_values=n)
         if launches != want or any(calls.values()):
             raise AssertionError(f"fabric_locality {scheme} launched "
                                  f"{launches}, plain {calls}; want {want}")
@@ -2859,7 +2989,7 @@ def run_fabric_locality(dev):
         one_period()
         launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
     want = dict(subround=2 * cfg.subrounds * pw, cms=pw, hot_gather=6,
-                orbit_match=0)
+                orbit_match=0, reply_values=pw)
     if launches != want or any(calls.values()):
         raise AssertionError(f"fabric_locality period launched {launches}, "
                              f"plain {calls}; want {want}")
@@ -2939,7 +3069,7 @@ def run_composed_vs_fused(dev):
     wl = Workload(WORKLOAD, device=dev)
     launches = dict.fromkeys(kn.LAUNCHES, 0)
 
-    def drive(label, fn, want_subround):
+    def drive(label, fn, want_subround, want_reply=0):
         with counting_plain_versions() as plain_calls:
             kn.reset_launch_counts()
             t0 = time.perf_counter()
@@ -2949,9 +3079,11 @@ def run_composed_vs_fused(dev):
             got, calls = dict(kn.LAUNCHES), dict(plain_calls)
         want = dict.fromkeys(got, 0)
         want["subround"] = want_subround
+        want["reply_values"] = want_reply
         if got != want or any(calls.values()):
             raise AssertionError(f"{label}: launches {got}, plain {calls}")
-        launches["subround"] += got["subround"]
+        for k in ("subround", "reply_values"):
+            launches[k] += got[k]
         return out, wall
 
     for scheme in ("orbitcache", "netcache", "nocache"):
@@ -2965,9 +3097,11 @@ def run_composed_vs_fused(dev):
         sim.carry = sim.carry._replace(write_ratio=torch.tensor(
             0.1, dtype=torch.float32, device=dev))
         n_sub = rack.subrounds * COMPOSED_WINDOWS * (scheme == "orbitcache")
+        # both sides of a window run server_step: 2 reply_values a window
         (leaves, carry), wall = drive(
             scheme, lambda: tc.fused_and_composed(sim, COMPOSED_WINDOWS,
-                                                  same_on_card), n_sub)
+                                                  same_on_card), n_sub,
+            2 * COMPOSED_WINDOWS)
         cs = carry.clients
         phase("composed_vs_fused", scheme=scheme, windows=COMPOSED_WINDOWS,
               write_ratio=0.1, equal_leaves=leaves, subround_launches=n_sub,
@@ -3346,7 +3480,8 @@ def analysis_paper_rack(dev, wl):
     summ = kernel_summary(window)
     per_window = summ.launches
     seen = {k: summ.kernels[s] for k, s in KERNEL_SYMBOLS.items()}
-    want = dict(subround=RACK.subrounds, cms=0, hot_gather=0, orbit_match=0)
+    want = dict(subround=RACK.subrounds, cms=0, hot_gather=0, orbit_match=0,
+                reply_values=1)
     if per_window != want or seen != per_window or summ.htod or summ.dtoh:
         raise AssertionError(f"replayed paper window: LAUNCHES "
                              f"{per_window}, profiler {seen}, HtoD "
@@ -4371,6 +4506,7 @@ def main():
     from repro_torch.kernels.cms import kernel as cms_kernel
     from repro_torch.kernels.hot_gather import kernel as hg_kernel
     from repro_torch.kernels.orbit_match import kernel as om_kernel
+    from repro_torch.kernels.reply_values import kernel as rv_kernel
     from repro_torch.kernels.subround import kernel as sr_kernel
 
     dev = torch.device("cuda", 0)
@@ -4383,7 +4519,8 @@ def main():
         print(smi)
         return
 
-    libs = [sr_kernel.LIB, cms_kernel.LIB, hg_kernel.LIB, om_kernel.LIB]
+    libs = [sr_kernel.LIB, cms_kernel.LIB, hg_kernel.LIB, om_kernel.LIB,
+            rv_kernel.LIB]
     t0 = time.perf_counter()
     built = _build.build_all(libs, verbose=True)
     for kl in libs:
@@ -4411,11 +4548,15 @@ def main():
           bf16_tolerance=dict(rtol=BF16_TOL, atol=BF16_TOL),
           library_f32_device_us=hg_calls[1]["library_f32_two_calls_device_us"],
           calls=hg_calls)
+    rv_cases = check_reply_values(dev)
+    rv_times = time_reply_values(dev)
+    phase("reply_values_vs_plain", cases=rv_cases, equal=True,
+          calls=rv_times)
 
     main_launches, live, wl = run_main_path(dev)
     om = run_orbit_match(dev, live)
     cp_launches = run_control_plane(dev)
-    run_schemes(dev)
+    scheme_rv = run_schemes(dev)
     held = {}
     batched, fleet_launches = run_fleet(dev, held)
     n_fab, fab_err, fab_times = check_fabric_kernels(dev)
@@ -4444,6 +4585,14 @@ def main():
                     batched_device_us=us)
 
     hg = hg_calls[1]          # ids [2048] against hot [2048], the largest
+    rv = rv_times[0]          # the paper fleet's window, the paper's mix
+    rv_by_path = dict(main_path=WINDOWS,
+                      control_plane=cp_launches["reply_values"],
+                      schemes=scheme_rv, **fleet_launches["reply_values"],
+                      **{c: v["reply_values"]
+                         for c, v in fabric_launches.items()},
+                      switch_regression=reg_launches["reply_values"],
+                      analysis=analysis_launches["reply_values"])
 
     def device_times(t):
         return {k: t[k] for k in ("device_us", "device_floor_us",
@@ -4488,6 +4637,13 @@ def main():
              **device_times(om),
              plain_ms=om["plain_ms"], bound_ms=om["bound_ms"],
              bound_by=om["bound_by"], library_ms=None),
+        dict(name="reply_values", route="cuda",
+             source="src/repro_torch/kernels/reply_values/kernel.cu",
+             replaces=None, launches=sum(rv_by_path.values()),
+             launches_by_path=rv_by_path, max_abs_err=0.0, ms=rv["ms"],
+             **device_times(rv), plain_ms=rv["plain_ms"],
+             bound_ms=rv["bound_ms"], bound_by=rv["bound_by"],
+             library_ms=None),
     ]
     print(json.dumps({"kernels": record}))
     print(smi)

@@ -17,13 +17,17 @@ run of its harness, derived from the code (R = 2 subrounds):
 * ``window_pipeline``: R = 2 ``subround``;
 * ``compiled_controller_chunk`` (a chunk of 1 period of 2 windows,
   tracking on): 2 windows x R = 4 ``subround``, 1 ``cms`` a window = 2,
-  3 ``hot_gather`` a period (``controller._merge_scores``);
+  3 ``hot_gather`` a period (``controller._merge_scores``), 1
+  ``reply_values`` a window (``server_step``) = 2;
 * ``fleet.window_step`` (P = 2, a chunk of 1 window): R = 2 ``subround``
-  whatever P (one batched call a call site);
+  and 1 ``reply_values`` whatever P (one batched call a call site);
 * ``fabric_window_step`` (a chunk of 1 window, no tracking): R rack + R
-  spine = 4 ``subround``, 0 ``cms``;
+  spine = 4 ``subround``, 0 ``cms``, 1 ``reply_values`` for all racks;
 * ``fabric_controller_chunk`` (1 period of 2 windows, tracking): 2 x (R +
-  R) = 8 ``subround``, 2 ``cms``, 3 rack + 3 spine = 6 ``hot_gather``.
+  R) = 8 ``subround``, 2 ``cms``, 3 rack + 3 spine = 6 ``hot_gather``, 2
+  ``reply_values``.
+
+The two switch entries reach no ``server_step``: 0 ``reply_values``.
 
 On the ``cuda`` backend every call launches once (``kernels.LAUNCHES``
 equals ``CALLS``); on ``ref`` nothing launches.
@@ -218,7 +222,8 @@ def _controller_chunk(device) -> EntryPoint:
         return _chunk_harness(sim, run, sim.chunk.graphs, sweep, period=True)
 
     return EntryPoint("compiled_controller_chunk", build,
-                      dict(subround=2 * R, cms=2, hot_gather=3), device,
+                      dict(subround=2 * R, cms=2, hot_gather=3,
+                           reply_values=2), device,
                       axis="active_size", sweep_values=(5, 8),
                       body_fn=sim_mod.window_step)
 
@@ -236,7 +241,8 @@ def _fleet_window_step(device) -> EntryPoint:
         return _chunk_harness(f, run, f.chunk.graphs,
                               lambda rps: f.set_offered(rps))
 
-    return EntryPoint("fleet.window_step", build, dict(subround=R), device,
+    return EntryPoint("fleet.window_step", build,
+                      dict(subround=R, reply_values=1), device,
                       axis="offered_rps", sweep_values=(4e4, 9e4),
                       body_fn=fl.fleet_window_step)
 
@@ -259,8 +265,9 @@ def _fabric_window_step(device) -> EntryPoint:
         return _chunk_harness(sim, run, sim.chunk.graphs,
                               lambda f: sim.set_local_frac(f))
 
-    return EntryPoint("fabric_window_step", build, dict(subround=2 * R, cms=0),
-                      device, axis="local_frac", sweep_values=(0.5, 0.9),
+    return EntryPoint("fabric_window_step", build,
+                      dict(subround=2 * R, cms=0, reply_values=1), device,
+                      axis="local_frac", sweep_values=(0.5, 0.9),
                       body_fn=fs.fabric_window_step)
 
 
@@ -282,7 +289,8 @@ def _fabric_controller_chunk(device) -> EntryPoint:
                               lambda f: sim.set_local_frac(f), period=True)
 
     return EntryPoint("fabric_controller_chunk", build,
-                      dict(subround=2 * 2 * R, cms=2, hot_gather=6), device,
+                      dict(subround=2 * 2 * R, cms=2, hot_gather=6,
+                           reply_values=2), device,
                       axis="local_frac", sweep_values=(0.5, 0.9),
                       body_fn=fs.fabric_window_step)
 

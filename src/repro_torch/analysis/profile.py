@@ -24,7 +24,8 @@ import torch
 # LAUNCHES key -> the CUDA symbol of its hand-written kernel
 KERNEL_SYMBOLS = {"subround": "subround_kernel", "cms": "cms_kernel",
                   "hot_gather": "hot_gather_kernel",
-                  "orbit_match": "orbit_match_kernel"}
+                  "orbit_match": "orbit_match_kernel",
+                  "reply_values": "reply_values_kernel"}
 
 
 @dataclass

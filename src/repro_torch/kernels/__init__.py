@@ -16,7 +16,7 @@ tensors).  Asking for ``cuda`` with CPU tensors is an error.
 ``LAUNCHES`` counts kernel launches by kernel name: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels.  ``CALLS`` counts the calls of the
-four dispatchers below, on either backend (a batched call once, as it
+five dispatchers below, on either backend (a batched call once, as it
 launches once): on ``cuda`` each call launches once, so the two agree,
 and on ``ref`` ``LAUNCHES`` stays 0 while ``CALLS`` still counts the
 kernel calls a path makes, the number the card's launches must equal.
@@ -25,7 +25,8 @@ The fleet
 ---------
 A fleet of racks (``kvstore.fleet``) runs the window under
 ``torch.func.vmap`` over its points.  There ``subround``,
-``cms_update_query`` and ``hot_gather`` are ``torch.library`` custom ops
+``cms_update_query``, ``hot_gather`` and ``reply_values`` are
+``torch.library`` custom ops
 with a batching rule: the rule moves each batched input's point axis to
 the front, passes a shared input (``in_dims`` None) once with a point
 stride of 0, and calls the kernel's *points op* (``repro_torch::
@@ -53,6 +54,7 @@ from torch._C._functorch import is_batchedtensor
 from . import cms as _cms_pkg  # noqa: F401, E402
 from . import hot_gather as _hot_gather_pkg  # noqa: F401, E402
 from . import orbit_match as _orbit_match_pkg  # noqa: F401, E402
+from . import reply_values as _reply_values_pkg  # noqa: F401, E402
 from . import subround as _subround_pkg  # noqa: F401, E402
 
 KERNEL_BACKENDS = ("cuda", "ref")
@@ -60,7 +62,7 @@ _ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
 _forced: str | None = None
 
 LAUNCHES: dict[str, int] = {"subround": 0, "cms": 0, "hot_gather": 0,
-                            "orbit_match": 0}
+                            "orbit_match": 0, "reply_values": 0}
 CALLS: dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -188,6 +190,24 @@ def hot_gather(ids, hot_ids, rows):
     if kernel_backend(ids.device) == "ref":
         return hg_ref.hot_gather_ref(ids, hot_ids, rows)
     return ops.hot_gather(ids, hot_ids, rows)
+
+
+def reply_values(kidx, version, vlen, carries_val, max_frags: int,
+                 pad: int):
+    """The value bytes of a server step's reply lanes: uint8[n * cap *
+    max_frags, pad] for int32 ``kidx``, ``version``, ``vlen`` and bool
+    ``carries_val`` [n, cap] (``ops`` and ``ref`` say which bytes)."""
+    from .reply_values import ops
+    from .reply_values import ref as rv_ref
+
+    CALLS["reply_values"] += 1
+    if _batched(kidx, version, vlen, carries_val):
+        return _reply_values_op(kidx, version, vlen, carries_val, max_frags,
+                                pad)
+    if kernel_backend(kidx.device) == "ref":
+        return rv_ref.reply_values_ref(kidx, version, vlen, carries_val,
+                                       max_frags, pad)
+    return ops.reply_values(kidx, version, vlen, carries_val, max_frags, pad)
 
 
 # ---------------------------------------------------------------------------
@@ -404,3 +424,54 @@ def _hot_gather_points_vmap(info, in_dims, ids, hot_ids, rows, p):
 
 torch.library.register_vmap("repro_torch::hot_gather_points",
                             _hot_gather_points_vmap)
+
+
+# -- reply_values -----------------------------------------------------------
+@torch.library.custom_op("repro_torch::reply_values", mutates_args=())
+def _reply_values_op(kidx: torch.Tensor, version: torch.Tensor,
+                     vlen: torch.Tensor, carries_val: torch.Tensor,
+                     max_frags: int, pad: int) -> torch.Tensor:
+    return reply_values(kidx, version, vlen, carries_val, max_frags, pad)
+
+
+def _reply_values_vmap(info, in_dims, kidx, version, vlen, carries_val,
+                       max_frags, pad):
+    args = [_front(a, d) for a, d in
+            zip((kidx, version, vlen, carries_val), in_dims[:4])]
+    return _reply_values_points_op(*args, info.batch_size, max_frags,
+                                   pad), 0
+
+
+torch.library.register_vmap("repro_torch::reply_values",
+                            _reply_values_vmap)
+
+
+@torch.library.custom_op("repro_torch::reply_values_points",
+                         mutates_args=())
+def _reply_values_points_op(kidx: torch.Tensor, version: torch.Tensor,
+                            vlen: torch.Tensor, carries_val: torch.Tensor,
+                            p: int, max_frags: int, pad: int,
+                            ) -> torch.Tensor:
+    """P points, each input ``[P, n, cap]`` or shared ``[n, cap]``:
+    ``reply_values_batched``'s one launch (on ``ref`` the plain version
+    once, the shared inputs broadcast)."""
+    from .reply_values import ops
+    from .reply_values import ref as rv_ref
+
+    args = (kidx, version, vlen, carries_val)
+    if kernel_backend(kidx.device) == "ref":
+        return rv_ref.reply_values_ref(*args, max_frags, pad)
+    return ops.reply_values_batched(*args, p, max_frags, pad)
+
+
+def _reply_values_points_vmap(info, in_dims, kidx, version, vlen,
+                              carries_val, p, max_frags, pad):
+    q, args = info.batch_size, (kidx, version, vlen, carries_val)
+    args, _ = _fold(q, p, args, in_dims[:4],
+                    _has_points(args, in_dims[:4], (2,) * 4))
+    out = _reply_values_points_op(*args, q * p, max_frags, pad)
+    return out.reshape((q, p) + out.shape[1:]), 0
+
+
+torch.library.register_vmap("repro_torch::reply_values_points",
+                            _reply_values_points_vmap)

@@ -5,7 +5,9 @@ window; arrivals beyond the queue depth drop.  Served requests become
 replies (R-REQ -> R-REP, W-REQ -> W-REP, F-REQ -> F-REP, CRN-REQ -> R-REP),
 ``max_frags`` lanes each.  With ``track_popularity`` every server's
 count-min tracker counts its accepted reads, all servers in one count-min
-kernel launch per window.
+kernel launch per window.  The replies' value bytes are one
+``reply_values`` kernel launch per window, for all servers (and all
+points of a fleet).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import kernels as kn
 from repro_torch.core.hashing import hash128_u32
 from repro_torch.core.scatter_free import unique_writer
 from repro_torch.core.sketch import (
@@ -22,8 +25,6 @@ from repro_torch.core.types import (
     COUNTER_DTYPE, OP_CRN_REQ, OP_F_REP, OP_F_REQ, OP_R_REP, OP_R_REQ,
     OP_W_REP, OP_W_REQ, PacketBatch, resolve_device, sat_add,
 )
-
-from .store import synth_value
 
 I32 = torch.int32
 
@@ -163,14 +164,10 @@ def server_step(st: ServerState, cfg: ServerConfig, pkts: PacketBatch,
     frag = ar(f)[None, None, :]
     lane_valid = live[:, :, None] & (
         frag < torch.where(carries_val, n_frags, 1)[:, :, None])
-    frag_off = frag * pad
-    frag_vlen = torch.clamp(s_vlen[:, :, None] - frag_off, 0, pad)
-    val = synth_value(s_kidx[:, :, None].expand(n, cap, f),
-                      version[:, :, None].expand(n, cap, f), pad,
-                      offset=frag_off.expand(n, cap, f))
-    keep = ((torch.arange(pad, device=dev)[None, None, None, :]
-             < frag_vlen[..., None]) & carries_val[:, :, None, None])
-    val = torch.where(keep, val, 0).to(torch.uint8)
+    frag_vlen = torch.clamp(s_vlen[:, :, None] - frag * pad, 0, pad)
+    # each lane's value bytes (synth_value of its key and version under
+    # frag_vlen and carries_val): one kernel launch for all points
+    val = kn.reply_values(s_kidx, version, s_vlen, carries_val, f, pad)
 
     def fl(x):  # [n, cap, F] -> [n*cap*F]
         return x.expand(n, cap, f).reshape(-1)
@@ -188,7 +185,7 @@ def server_step(st: ServerState, cfg: ServerConfig, pkts: PacketBatch,
         port=fl(frag),   # reply lanes carry the fragment index in ``port``
         server=fl(ar(n)[:, None, None]),
         ts=fl(s_ts[:, :, None]), valid=fl(lane_valid),
-        val=val.reshape(n * cap * f, pad),
+        val=val,
     )
 
     st = st._replace(

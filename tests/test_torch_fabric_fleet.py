@@ -382,4 +382,4 @@ def test_nested_batched_launches_equal_plain():
             np.testing.assert_array_equal(a[k], b_[k], err_msg=k)
     assert_trees_equal(cg, ce, "graphed vs eager")
     assert lg == le == dict(subround=6 * 2 * cfg.subrounds, cms=6,
-                            hot_gather=6, orbit_match=0)
+                            hot_gather=6, orbit_match=0, reply_values=6)

@@ -80,7 +80,8 @@ def test_kernel_calls_counted_on_ref(cpu_entries):
     h.run()
     kn.reset_launch_counts()
     h.run()
-    assert kn.CALLS == dict(subround=8, cms=2, hot_gather=6, orbit_match=0)
+    assert kn.CALLS == dict(subround=8, cms=2, hot_gather=6, orbit_match=0,
+                            reply_values=2)
     assert not any(kn.LAUNCHES.values())
 
 
