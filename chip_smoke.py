@@ -650,8 +650,9 @@ def time_kernel(dev):
     ptrs = ([a.data_ptr() for a in args[:-1]]
             + [args[-1].reshape(1).data_ptr()] + [o.data_ptr() for o in outs])
     times = kernel_times(
-        lambda st: kernel.launch(ptrs, b, c, s, f, j, st),
-        lambda st: kernel.launch(ptrs, b, c, s, f, j, st, empty=True),
+        lambda st: kernel.launch(ptrs, [0] * 63, 1, b, c, s, f, j, st),
+        lambda st: kernel.launch(ptrs, [0] * 63, 1, b, c, s, f, j, st,
+                                 empty=True),
         lambda: subround(*args, s, f, j),
         lambda: subround_ref(*args, queue_size=s, max_frags=f, max_serves=j))
     # least time: every input read once and every output written once over
@@ -752,7 +753,7 @@ def time_cms(dev):
     idx, mask, counts = cms_case(7, n, b, w, 1 / 32, dev)
     tile = tile_for(b)
     out, est = update_query(idx, mask, counts, tile)
-    ptrs = (idx.data_ptr(), mask.data_ptr(), counts.data_ptr(),
+    ptrs = (idx.data_ptr(), 0, n, mask.data_ptr(), counts.data_ptr(),
             out.data_ptr(), est.data_ptr())
     times = kernel_times(
         lambda st: kernel.launch(*ptrs, n, b, w, tile, st),
@@ -882,8 +883,8 @@ def hg_kernel_times(ids, hot, rows):
 
     (b,), (c, d) = ids.shape, rows.shape
     out, hit = hot_gather(ids, hot, rows)
-    ptrs = (ids.data_ptr(), hot.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            hit.data_ptr())
+    ptrs = (ids.data_ptr(), 0, hot.data_ptr(), 0, rows.data_ptr(), 0,
+            out.data_ptr(), hit.data_ptr(), 1)
     return kernel_times(
         lambda st: kernel.launch(*ptrs, b, c, d, rows.dtype, st),
         lambda st: kernel.launch(*ptrs, b, c, d, rows.dtype, st, empty=True),
@@ -992,7 +993,7 @@ def check_reply_values(dev):
                                           x.expand(p, n, cap) for x in a),
                                         f, pad)
                 kn.reset_launch_counts()
-                got = ops.reply_values_batched(*a, p, f, pad)
+                got = ops.reply_values(*a, f, pad, p=p)
                 one = ops.reply_values(*(x if x.dim() == 2 else x[-1]
                                          for x in a), f, pad)
                 torch.cuda.synchronize()
@@ -1031,7 +1032,7 @@ def time_reply_values(dev):
 
             t = kernel_times(
                 launch, lambda st: launch(st, True),
-                lambda: ops.reply_values_batched(*args, p, f, pad),
+                lambda: ops.reply_values(*args, f, pad, p=p),
                 lambda: reply_values_ref(*args, f, pad))
             hashed = int(torch.clamp(args[2], 0, f * pad)[args[3]].sum())
             rows.append(dict(shape=dict(zip(("p", "n", "cap", "f", "pad"),
@@ -1746,11 +1747,9 @@ def check_subround_batched(dev):
     """The batched subround (one launch of P blocks) against the plain
     version once per point, over fuzz cases at two shapes with each
     sharing; then its device time at the paper's shape for P = 1, 4, 12
-    (no input shared, as the fleet's) beside P x the serial launch's."""
+    (no input shared, as the fleet's) beside P x one rack's launch."""
     from repro_torch.kernels.subround import kernel
-    from repro_torch.kernels.subround.ops import (
-        SubroundOuts, subround, subround_batched,
-    )
+    from repro_torch.kernels.subround.ops import SubroundOuts, subround
     from repro_torch.kernels.subround.ref import subround_ref
 
     def tensors(seed, shape, **kw):
@@ -1767,7 +1766,7 @@ def check_subround_batched(dev):
                     seed = 9000 + 100 * p + 10 * k + r
                     per = [tensors(seed + i, shape) for i in range(p)]
                     args, batched = stack_points(per, shared)
-                    got = subround_batched(args, batched, p, s, f, j)
+                    got = subround(*args, s, f, j, p=p)
                     for i in range(p):
                         want = subround_ref(*point_args(args, batched, i),
                                             queue_size=s, max_frags=f,
@@ -1787,30 +1786,22 @@ def check_subround_batched(dev):
     ptrs = ([a.data_ptr() for a in one[:-1]] + [one[-1].reshape(1).data_ptr()]
             + [o.data_ptr() for o in outs])
     single_us, _ = device_timed(
-        lambda st: kernel.launch(ptrs, b, c, s, f, j, st))
+        lambda st: kernel.launch(ptrs, [0] * 63, 1, b, c, s, f, j, st))
 
     def launch_for(p):
         per = [tensors(7 + i, PAPER, budget=1000) for i in range(p)]
-        args, batched = stack_points(per, ())
-        got = subround_batched(args, batched, p, s, f, j)
+        args, _ = stack_points(per, ())
+        got = subround(*args, s, f, j, p=p)
         bptrs = ([a.data_ptr() for a in args] + [o.data_ptr() for o in got])
         strides = ([a[0].numel() for a in args]
                    + [o[0].numel() for o in got])
 
         def launch(st, held=(args, got)):    # the tensors outlive the call
-            if p == 1 and not launch_for.template:   # the wrapper's choice
-                kernel.launch(bptrs, b, c, s, f, j, st)
-            else:
-                kernel.launch_batched(bptrs, strides, p, b, c, s, f, j, st)
+            kernel.launch(bptrs, strides, p, b, c, s, f, j, st)
         return nbytes_of(*args, *got), launch
-    launch_for.template = False
     times = batched_times(single_us, launch_for)
-    # the batched kernel itself at P = 1, which the wrapper does not launch
-    launch_for.template = True
-    template_p1_us, _ = device_timed(launch_for(1)[1])
     return n_cases, max_err, dict(single_device_us=single_us, shape=PAPER,
-                                  batched=times,
-                                  batched_kernel_p1_device_us=template_p1_us)
+                                  batched=times)
 
 
 def check_cms_batched(dev):
@@ -1819,9 +1810,7 @@ def check_cms_batched(dev):
     time at the rack's shape for P = 1, 4, 12 beside P x the single
     launch's."""
     from repro_torch.kernels.cms import kernel
-    from repro_torch.kernels.cms.ops import (
-        tile_for, update_query, update_query_batched,
-    )
+    from repro_torch.kernels.cms.ops import tile_for, update_query
     from repro_torch.kernels.cms.ref import cms_update_query_fast
 
     n_cases, max_err = 0, 0.0
@@ -1832,7 +1821,7 @@ def check_cms_batched(dev):
                 per = [cms_case(700 + 10 * p + i, n, b, w, 1 / 8, dev)
                        for i in range(p)]
                 (idx, mask, counts), _ = stack_points(per, shared)
-                got = update_query_batched(idx, mask, counts, tile)
+                got = update_query(idx, mask, counts, tile, p)
                 for i in range(p):
                     want = cms_update_query_fast(
                         idx if shared else idx[i], mask[i], counts[i],
@@ -1849,15 +1838,15 @@ def check_cms_batched(dev):
     idx, mask, counts = cms_case(7, n, b, w, 1 / 32, dev)
     out, est = update_query(idx, mask, counts, tile)
     single_us, _ = device_timed(lambda st: kernel.launch(
-        idx.data_ptr(), mask.data_ptr(), counts.data_ptr(), out.data_ptr(),
-        est.data_ptr(), n, b, w, tile, st))
+        idx.data_ptr(), 0, n, mask.data_ptr(), counts.data_ptr(),
+        out.data_ptr(), est.data_ptr(), n, b, w, tile, st))
 
     def launch_for(p):
         per = [cms_case(7 + i, n, b, w, 1 / 32, dev) for i in range(p)]
         (pidx, pmask, pcounts), _ = stack_points(per, ())
-        pout, pest = update_query_batched(pidx, pmask, pcounts, tile)
+        pout, pest = update_query(pidx, pmask, pcounts, tile, p)
         return nbytes_of(pidx, pmask, pcounts, pout, pest), \
-            lambda st: kernel.launch_batched(
+            lambda st: kernel.launch(
                 pidx.data_ptr(), b * 5, n, pmask.data_ptr(),
                 pcounts.data_ptr(), pout.data_ptr(), pest.data_ptr(), p * n,
                 b, w, tile, st)
@@ -1876,9 +1865,7 @@ def check_hot_gather_batched(dev):
     device time at each shape for P = 1, 4, 12 (the third with shared
     rows, as the fleet's) beside P x the single launch's."""
     from repro_torch.kernels.hot_gather import kernel
-    from repro_torch.kernels.hot_gather.ops import (
-        hot_gather, hot_gather_batched,
-    )
+    from repro_torch.kernels.hot_gather.ops import hot_gather
     from repro_torch.kernels.hot_gather.ref import hot_gather_ref
 
     n_cases, max_err = 0, 0.0
@@ -1888,7 +1875,7 @@ def check_hot_gather_batched(dev):
                 per = [hg_case(500 + 10 * p + k + i, b, c, d, torch.int32,
                                True, dev) for i in range(p)]
                 args, batched = stack_points(per, shared)
-                got = hot_gather_batched(*args, p)
+                got = hot_gather(*args, p=p)
                 for i in range(p):
                     want = hot_gather_ref(*point_args(args, batched, i))
                     for g, w in zip(got, want):
@@ -1904,18 +1891,18 @@ def check_hot_gather_batched(dev):
         ids, hot, rows = hg_case(b + c, b, c, d, torch.int32, True, dev)
         out, hit = hot_gather(ids, hot, rows)
         single_us, _ = device_timed(lambda st: kernel.launch(
-            ids.data_ptr(), hot.data_ptr(), rows.data_ptr(), out.data_ptr(),
-            hit.data_ptr(), b, c, d, rows.dtype, st))
+            ids.data_ptr(), 0, hot.data_ptr(), 0, rows.data_ptr(), 0,
+            out.data_ptr(), hit.data_ptr(), 1, b, c, d, rows.dtype, st))
 
         def launch_for(p, b=b, c=c, d=d, shared=shared):
             per = [hg_case(b + c + i, b, c, d, torch.int32, True, dev)
                    for i in range(p)]
             args, batched = stack_points(per, shared)
-            pout, phit = hot_gather_batched(*args, p)
+            pout, phit = hot_gather(*args, p=p)
             strides = [a[0].numel() if bt else 0
                        for a, bt in zip(args, batched)]
             return nbytes_of(*args, pout, phit), \
-                lambda st: kernel.launch_batched(
+                lambda st: kernel.launch(
                     args[0].data_ptr(), strides[0], args[1].data_ptr(),
                     strides[1], args[2].data_ptr(), strides[2],
                     pout.data_ptr(), phit.data_ptr(), p, b, c, d,
@@ -2461,13 +2448,11 @@ def check_fabric_kernels(dev):
     launch; the spine controller's ``hot_gather`` shapes, timed."""
     from repro_torch import kernels as kn
     from repro_torch.kernels.cms import kernel as cms_kernel
-    from repro_torch.kernels.cms.ops import (
-        tile_for, update_query, update_query_batched,
-    )
+    from repro_torch.kernels.cms.ops import tile_for, update_query
     from repro_torch.kernels.cms.ref import cms_update_query_fast
     from repro_torch.kernels.hot_gather.ref import hot_gather_ref
     from repro_torch.kernels.subround import kernel as sr_kernel
-    from repro_torch.kernels.subround.ops import subround, subround_batched
+    from repro_torch.kernels.subround.ops import subround
     from repro_torch.kernels.subround.ref import subround_ref
 
     q, r = FABRIC_NESTED
@@ -2493,14 +2478,15 @@ def check_fabric_kernels(dev):
                 + [one[-1].reshape(1).data_ptr()]
                 + [o.data_ptr() for o in outs])
         single, _ = device_timed(
-            lambda st: sr_kernel.launch(ptrs, b, c, s, f, j, st))
+            lambda st: sr_kernel.launch(ptrs, [0] * 63, 1, b, c, s, f, j,
+                                        st))
         args, _ = stack_points([sr_tensors(7 + i, shape) for i in range(p)],
                                ())
-        got = subround_batched(args, [True] * 31, p, s, f, j)
+        got = subround(*args, s, f, j, p=p)
         bptrs = [a.data_ptr() for a in args] + [o.data_ptr() for o in got]
         strides = [a[0].numel() for a in args] + [o[0].numel() for o in got]
         us, method = device_timed(
-            lambda st, held=(args, got): sr_kernel.launch_batched(
+            lambda st, held=(args, got): sr_kernel.launch(
                 bptrs, strides, p, b, c, s, f, j, st))
         return dict(shape=dict(zip("bcsfj", shape)), p=p,
                     single_device_us=single, device_us=us,
@@ -2582,13 +2568,13 @@ def check_fabric_kernels(dev):
     idx, mask, counts = cms_case(7, n, b, w, 1 / 32, dev)
     o1, e1 = update_query(idx, mask, counts, tile)
     single, _ = device_timed(lambda st: cms_kernel.launch(
-        idx.data_ptr(), mask.data_ptr(), counts.data_ptr(), o1.data_ptr(),
-        e1.data_ptr(), n, b, w, tile, st))
+        idx.data_ptr(), 0, n, mask.data_ptr(), counts.data_ptr(),
+        o1.data_ptr(), e1.data_ptr(), n, b, w, tile, st))
     p = q * r
     (pidx, pmask, pcounts), _ = stack_points(
         [cms_case(7 + i, n, b, w, 1 / 32, dev) for i in range(p)], ())
-    pout, pest = update_query_batched(pidx, pmask, pcounts, tile)
-    us, method = device_timed(lambda st: cms_kernel.launch_batched(
+    pout, pest = update_query(pidx, pmask, pcounts, tile, p)
+    us, method = device_timed(lambda st: cms_kernel.launch(
         pidx.data_ptr(), b * 5, n, pmask.data_ptr(), pcounts.data_ptr(),
         pout.data_ptr(), pest.data_ptr(), p * n, b, w, tile, st))
     out["cms_racks"] = dict(shape=dict(n=n, b=b, w=w), p=p,
@@ -4399,8 +4385,9 @@ def time_against(dev, other_dir):
     ``hot_gather`` at the controller's three call shapes and on the three
     input sets of one control-plane period's ``_merge_scores`` (recorded
     once, with the tree's kernels, from the paper rack after its preload),
-    ``orbit_match`` at 352 lanes against 128 entries.  Each version is
-    first held against the plain version at the timed inputs."""
+    ``orbit_match`` at 352 lanes against 128 entries, one rack each (P =
+    1).  Each version is first held against the plain version at the
+    timed inputs."""
     from pathlib import Path
 
     from repro_torch.kernels import _build
@@ -4448,12 +4435,10 @@ def time_against(dev, other_dir):
                                    for a in hg_args + hg_live)),
         "orbit_match": (om_kernel, time_orbit_match, lambda: same(
             orbit_match(*om_args), orbit_match_ref(*om_args)))}
-    # the serial C interfaces (an older source has no batched launch)
-    others = {k: _build.KernelLibrary(
-        k, Path(other_dir) / f"{k}.cu",
-        {n: sig for n, sig in mod.LIB.signatures.items()
-         if "batched" not in n})
-        for k, (mod, _, _) in checks.items()}
+    # the tree's C interfaces: one work launch and one empty launch each
+    others = {k: _build.KernelLibrary(k, Path(other_dir) / f"{k}.cu",
+                                      mod.LIB.signatures)
+              for k, (mod, _, _) in checks.items()}
     _build.build_all([mod.LIB for mod, _, _ in checks.values()]
                      + list(others.values()))
     sim, _, period_w = control_plane_rack(dev)

@@ -1,17 +1,18 @@
 """Kernel dispatch for the port (counterpart of ``repro.kernels``).
 
-Each kernel directory holds ``ref.py`` (the plain PyTorch version, which
-is also the CPU path), the Hopper kernel (``kernel.cu`` and its loader
-``kernel.py``) and ``ops.py`` (the wrapper that launches it).
+Each kernel directory holds ``ref.py`` (the plain PyTorch version), the
+Hopper kernel (``kernel.cu`` and its loader ``kernel.py``) and ``ops.py``
+(the wrapper that launches it on CUDA tensors and refuses any other).
+This module alone chooses between the plain version and the kernel.
 
 Backends
 --------
 * ``cuda``  the hand-written kernels; CUDA tensors only;
 * ``ref``   the plain PyTorch versions, on any device.
 
-Resolution order: :func:`set_kernel_backend` > ``REPRO_TORCH_KERNEL_BACKEND``
-> the device of the data (``cuda`` for CUDA tensors, ``ref`` for CPU
-tensors).  Asking for ``cuda`` with CPU tensors is an error.
+:func:`set_kernel_backend` forces one; else the device of the data picks
+(``cuda`` for CUDA tensors, ``ref`` for CPU tensors).  Asking for ``cuda``
+with CPU tensors is an error.
 
 ``LAUNCHES`` counts kernel launches by kernel name: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -21,18 +22,27 @@ launches once): on ``cuda`` each call launches once, so the two agree,
 and on ``ref`` ``LAUNCHES`` stays 0 while ``CALLS`` still counts the
 kernel calls a path makes, the number the card's launches must equal.
 
+One launch path
+---------------
+Each kernel but ``orbit_match`` has one wrapper with an optional point
+count, ``ops.<name>(..., p=None)``: ``p`` None is one instance, with no
+point axis; ``p`` points take each input ``[p, ...]``, or one rank less
+where the points share it (a stride of 0), and give every output
+``[p, ...]``.  The kernel's *points function* here (``_subround``,
+``_cms``, ...) calls that wrapper on ``cuda`` and, on ``ref``, the plain
+version once, or once per point (:func:`_per_point`).
+
 The fleet
 ---------
 A fleet of racks (``kvstore.fleet``) runs the window under
-``torch.func.vmap`` over its points.  There ``subround``,
-``cms_update_query``, ``hot_gather`` and ``reply_values`` are
-``torch.library`` custom ops
-with a batching rule: the rule moves each batched input's point axis to
-the front, passes a shared input (``in_dims`` None) once with a point
-stride of 0, and calls the kernel's *points op* (``repro_torch::
-<name>_points``), which makes ONE batched launch for all points (on the
-``ref`` backend it calls the plain version once per point).  Called with
-no batched tensor, a dispatcher takes the serial path.
+``torch.func.vmap`` over its points.  There each kernel is a
+``torch.library`` custom op with a batching rule (:func:`_kernel_op`
+registers both, and the points op and its rule): the rule moves each
+batched input's point axis to the front, passes a shared input
+(``in_dims`` None) once, and calls the kernel's *points op*
+(``repro_torch::<name>_points``), which runs the points function for all
+points: ONE launch.  Called with no batched tensor, a dispatcher runs the
+points function for one instance.
 
 A fabric sweep (``fleet.BatchedFabricSimulator``) nests a second vmap
 level: the racks inside the points.  A points op has its own batching
@@ -44,8 +54,6 @@ one stride a point); one shared by both stays shared.
 """
 from __future__ import annotations
 
-import os
-
 import torch
 from torch._C._functorch import is_batchedtensor
 
@@ -56,9 +64,9 @@ from . import hot_gather as _hot_gather_pkg  # noqa: F401, E402
 from . import orbit_match as _orbit_match_pkg  # noqa: F401, E402
 from . import reply_values as _reply_values_pkg  # noqa: F401, E402
 from . import subround as _subround_pkg  # noqa: F401, E402
+from .subround import ops as _subround_ops  # noqa: E402
 
 KERNEL_BACKENDS = ("cuda", "ref")
-_ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
 _forced: str | None = None
 
 LAUNCHES: dict[str, int] = {"subround": 0, "cms": 0, "hot_gather": 0,
@@ -83,19 +91,14 @@ def set_kernel_backend(name: str | None) -> None:
 
 
 def kernel_backend(device: torch.device) -> str:
-    """Resolve the backend for data on ``device``: forced > env > device."""
-    be = _forced
-    if be is None:
-        be = os.environ.get(_ENV_VAR, "").strip().lower() or None
-        if be is not None and be not in KERNEL_BACKENDS:
-            raise ValueError(f"{_ENV_VAR}={be!r}; "
-                             f"expected one of {KERNEL_BACKENDS}")
-    if be is None:
+    """The backend for data on ``device``: the forced one, else by
+    device."""
+    if _forced is None:
         return "cuda" if device.type == "cuda" else "ref"
-    if be == "cuda" and device.type != "cuda":
+    if _forced == "cuda" and device.type != "cuda":
         raise ValueError(f"kernel backend 'cuda' needs CUDA tensors; the "
                          f"data lies on {device}")
-    return be
+    return _forced
 
 
 def orbit_match(hkey, table_hkeys, occupied, valid, pop_mask=None,
@@ -109,13 +112,12 @@ def orbit_match(hkey, table_hkeys, occupied, valid, pop_mask=None,
     ``block_b`` is the reference's lane tile, kept for its signature: no
     result depends on it.
     """
-    from .orbit_match import ops
-    from .orbit_match import ref as om_ref
+    from .orbit_match import ops, ref
 
     CALLS["orbit_match"] += 1
     if kernel_backend(hkey.device) == "ref":
-        return om_ref.orbit_match_ref(hkey, table_hkeys, occupied, valid,
-                                      pop_mask)
+        return ref.orbit_match_ref(hkey, table_hkeys, occupied, valid,
+                                   pop_mask)
     return ops.orbit_match(hkey, table_hkeys, occupied, valid, pop_mask)
 
 
@@ -134,25 +136,16 @@ def subround(
     and the serving round.  Gate masks already include lane validity.
     Returns an ``ops.SubroundOuts``.
     """
-    from .subround.ops import SubroundOuts
-    from .subround.ops import subround as _sr
-    from .subround.ref import subround_ref
-
-    args = (hkey, want, wreq, inst, frag, nfrags, kidx, vlen, client, seq,
+    args = [hkey, want, wreq, inst, frag, nfrags, kidx, vlen, client, seq,
             port, ts, table_hkeys, occupied, st_valid, st_version,
             rt_client, rt_seq, rt_port, rt_ts, rt_acked, rt_kidx, qlen,
             front, rear, ob_live, ob_kidx, ob_version, ob_vlen, ob_frags,
-            budget)
+            budget]
     CALLS["subround"] += 1
     if _batched(*args):
-        budget = torch.as_tensor(budget, device=hkey.device)
-        return SubroundOuts(*_subround_op(list(args[:30]) + [budget],
-                                          queue_size, max_frags, max_serves))
-    if kernel_backend(hkey.device) == "ref":
-        return SubroundOuts(*subround_ref(
-            *args, queue_size=queue_size, max_frags=max_frags,
-            max_serves=max_serves))
-    return _sr(*args, queue_size, max_frags, max_serves)
+        args[30] = torch.as_tensor(budget, device=hkey.device)
+    return _subround_ops.SubroundOuts(*_call(
+        _subround_op, _subround, args, [queue_size, max_frags, max_serves]))
 
 
 def cms_update_query(hkey, mask, counts, block_b: int = 256):
@@ -162,34 +155,22 @@ def cms_update_query(hkey, mask, counts, block_b: int = 256):
     [..., B] carry an optional leading axis of sketches over the one
     batch.  Returns ``(counts', est int32[..., B])``: each masked lane's
     estimate against the sketch as of the start of its tile of
-    ``min(block_b, max(8, B))`` lanes.
+    ``min(block_b, max(8, B))`` lanes.  Under vmap both outputs carry the
+    point axis.
     """
-    from .cms import ops
-    from .cms import ref as cms_ref
+    from .cms.ops import tile_for
 
     CALLS["cms"] += 1
-    if _batched(hkey, mask, counts):
-        return tuple(_cms_op(hkey, mask, counts, block_b))
-    if kernel_backend(hkey.device) == "ref":
-        idx = ops.rows_for(hkey, counts.shape[-1])
-        return cms_ref.cms_update_query_fast(
-            idx, mask.to(torch.int32), counts,
-            block_b=ops.tile_for(hkey.shape[0], block_b))
-    return ops.cms_update_query(hkey, mask, counts, block_b)
+    return tuple(_call(_cms_op, _cms, [hkey, mask, counts],
+                       [tile_for(hkey.shape[-2], block_b)]))
 
 
 def hot_gather(ids, hot_ids, rows):
     """Gather-by-id over a hot set: ``(out [B, D], hit int32[B])`` with
     ``out[b]`` the sum of the rows of every hot id equal to ``ids[b]``."""
-    from .hot_gather import ops
-    from .hot_gather import ref as hg_ref
-
     CALLS["hot_gather"] += 1
-    if _batched(ids, hot_ids, rows):
-        return tuple(_hot_gather_op(ids, hot_ids, rows))
-    if kernel_backend(ids.device) == "ref":
-        return hg_ref.hot_gather_ref(ids, hot_ids, rows)
-    return ops.hot_gather(ids, hot_ids, rows)
+    return tuple(_call(_hot_gather_op, _hot_gather, [ids, hot_ids, rows],
+                       []))
 
 
 def reply_values(kidx, version, vlen, carries_val, max_frags: int,
@@ -197,17 +178,71 @@ def reply_values(kidx, version, vlen, carries_val, max_frags: int,
     """The value bytes of a server step's reply lanes: uint8[n * cap *
     max_frags, pad] for int32 ``kidx``, ``version``, ``vlen`` and bool
     ``carries_val`` [n, cap] (``ops`` and ``ref`` say which bytes)."""
-    from .reply_values import ops
-    from .reply_values import ref as rv_ref
-
     CALLS["reply_values"] += 1
-    if _batched(kidx, version, vlen, carries_val):
-        return _reply_values_op(kidx, version, vlen, carries_val, max_frags,
-                                pad)
-    if kernel_backend(kidx.device) == "ref":
-        return rv_ref.reply_values_ref(kidx, version, vlen, carries_val,
-                                       max_frags, pad)
-    return ops.reply_values(kidx, version, vlen, carries_val, max_frags, pad)
+    return _call(_reply_values_op, _reply_values,
+                 [kidx, version, vlen, carries_val], [max_frags, pad])[0]
+
+
+# ---------------------------------------------------------------------------
+# points functions: p instances (None: one) on the backend the data picks
+# ---------------------------------------------------------------------------
+def _plain(fn, p, args, base):
+    """The plain version ``fn`` of one instance: once (``p`` None), or
+    once per point, stacked."""
+    if p is None:
+        return list(fn(*args))
+    return _per_point(fn, p, args,
+                      _has_points(args, (None,) * len(args), base))
+
+
+def _per_point(fn, p, args, batched):
+    """The plain version once per point, stacked (``batched[k]``: input k
+    has the point axis first)."""
+    per = [fn(*(a[i] if bt else a for a, bt in zip(args, batched)))
+           for i in range(p)]
+    return [torch.stack(x) for x in zip(*per)]
+
+
+def _subround(args, p, consts):
+    from .subround import ops, ref
+
+    s, f, j = consts
+    if kernel_backend(args[0].device) == "ref":
+        return _plain(lambda *a: ref.subround_ref(
+            *a, queue_size=s, max_frags=f, max_serves=j), p, args,
+            _SUBROUND_BASE)
+    return list(ops.subround(*args, s, f, j, p=p))
+
+
+def _cms(args, p, consts):
+    from .cms import ops, ref
+
+    (tile,) = consts
+    hkey, mask, counts = args
+    if kernel_backend(hkey.device) == "ref":
+        return _plain(lambda h, m, c: ref.cms_update_query_fast(
+            ops.rows_for(h, c.shape[-1]), m.to(torch.int32), c,
+            block_b=tile), p, args, _CMS_BASE)
+    return list(ops.update_query(ops.rows_for(hkey, counts.shape[-1]), mask,
+                                 counts, tile, p))
+
+
+def _hot_gather(args, p, consts):
+    from .hot_gather import ops, ref
+
+    if kernel_backend(args[0].device) == "ref":
+        return _plain(ref.hot_gather_ref, p, args, _HOT_GATHER_BASE)
+    return list(ops.hot_gather(*args, p=p))
+
+
+def _reply_values(args, p, consts):
+    from .reply_values import ops, ref
+
+    f, pad = consts
+    if kernel_backend(args[0].device) == "ref":
+        return _plain(lambda *a: (ref.reply_values_ref(*a, f, pad),), p,
+                      args, _REPLY_VALUES_BASE)
+    return [ops.reply_values(*args, f, pad, p=p)]
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +252,14 @@ def _batched(*xs) -> bool:
     """Whether any argument is a tensor batched by ``torch.func.vmap``."""
     return any(isinstance(x, torch.Tensor) and is_batchedtensor(x)
                for x in xs)
+
+
+def _call(op, points, args, consts):
+    """A dispatcher's call: its custom op where vmap batches an input, else
+    its points function for one instance."""
+    if _batched(*args):
+        return op(args, consts)
+    return points(args, None, consts)
 
 
 def _front(x, d):
@@ -231,247 +274,79 @@ def _unaliased(outs, ins):
     return [o.clone() if o.data_ptr() in ptrs else o for o in outs]
 
 
-def _per_point(fn, p, args, batched):
-    """The plain version once per point, stacked (``batched[k]``: input k
-    has the point axis first)."""
-    per = [fn(*(a[i] if bt else a for a, bt in zip(args, batched)))
-           for i in range(p)]
-    return [torch.stack(x) for x in zip(*per)]
-
-
 def _fold(q, p, args, dims, inner):
     """A points op's inputs under an outer vmap level of ``q`` points
     (``dims``: each input's axis of that level, or None): the ``[q * p,
-    ...]`` inputs of one points op, and which are batched.  ``inner[k]``:
-    input k has the op's own point axis (``p``) first."""
-    out, flags = [], []
+    ...]`` inputs of one points op, an input shared by both levels kept as
+    it is.  ``inner[k]``: input k has the op's own point axis (``p``)
+    first."""
+    out = []
     for a, d, bt in zip(args, dims, inner):
         if d is None and not bt:
             out.append(a)
-            flags.append(False)
             continue
         a = a.expand((q,) + a.shape) if d is None else a.movedim(d, 0)
         if not bt:
             a = a.unsqueeze(1).expand((q, p) + a.shape[1:])
         out.append(a.reshape((q * p,) + a.shape[2:]))
-        flags.append(True)
-    return out, flags
+    return out
 
 
 def _has_points(args, dims, base):
     """Whether each input carries the point axis: one dimension more than
-    its ``base`` rank, not counting the vmap level's own (``dims``)."""
-    return [a.dim() - (d is not None) > n
+    its ``base`` rank, not counting the vmap level's own (``dims``); a
+    ``base`` of None always does."""
+    return [n is None or a.dim() - (d is not None) > n
             for a, d, n in zip(args, dims, base)]
 
 
-def _unfold(outs, q, p):
-    return [o.reshape((q, p) + o.shape[1:]) for o in outs], [0] * len(outs)
+def _kernel_op(name, base, points):
+    """Register kernel ``name``'s custom op ``repro_torch::<name>``, its
+    points op ``repro_torch::<name>_points`` and a batching rule for each,
+    around its points function ``points(args, p, consts)``; return the
+    custom op.
+
+    Both ops take the kernel's tensor inputs as one list and its int
+    parameters as another.  ``base[k]`` is input k's rank in one
+    instance, or None for an input the points op always takes per point:
+    the custom op's rule expands it where the points share it."""
+
+    @torch.library.custom_op(f"repro_torch::{name}", mutates_args=())
+    def op(args: list[torch.Tensor], consts: list[int]) -> list[torch.Tensor]:
+        return _unaliased(points(args, None, consts), args)
+
+    @torch.library.custom_op(f"repro_torch::{name}_points", mutates_args=())
+    def points_op(args: list[torch.Tensor], p: int,
+                  consts: list[int]) -> list[torch.Tensor]:
+        return _unaliased(points(args, p, consts), args)
+
+    def op_vmap(info, in_dims, args, consts):
+        p = info.batch_size
+        args = [a.expand((p,) + a.shape) if d is None and n is None
+                else _front(a, d) for a, d, n in zip(args, in_dims[0], base)]
+        outs = points_op(args, p, consts)
+        return outs, [0] * len(outs)
+
+    def points_vmap(info, in_dims, args, p, consts):
+        q, dims = info.batch_size, in_dims[0]
+        args = _fold(q, p, args, dims, _has_points(args, dims, base))
+        outs = points_op(args, q * p, consts)
+        return [o.reshape((q, p) + o.shape[1:]) for o in outs], \
+            [0] * len(outs)
+
+    torch.library.register_vmap(op, op_vmap)
+    torch.library.register_vmap(points_op, points_vmap)
+    return op
 
 
-# -- subround ---------------------------------------------------------------
-@torch.library.custom_op("repro_torch::subround", mutates_args=())
-def _subround_op(args: list[torch.Tensor], queue_size: int, max_frags: int,
-                 max_serves: int) -> list[torch.Tensor]:
-    return _unaliased(subround(*args, queue_size=queue_size,
-                               max_frags=max_frags, max_serves=max_serves),
-                      args)
+# each input's rank in one instance (None: per point, always)
+_SUBROUND_BASE = _subround_ops.BASE_RANKS
+_CMS_BASE = (2, None, None)               # hkey; the sketches' mask, counts
+_HOT_GATHER_BASE = (1, 1, 2)
+_REPLY_VALUES_BASE = (2,) * 4
 
-
-def _subround_vmap(info, in_dims, args, queue_size, max_frags, max_serves):
-    dims = in_dims[0]
-    args = [_front(a, d) for a, d in zip(args, dims)]
-    outs = _subround_points_op(args, [d is not None for d in dims],
-                               info.batch_size, queue_size, max_frags,
-                               max_serves)
-    return outs, [0] * len(outs)
-
-
-torch.library.register_vmap("repro_torch::subround", _subround_vmap)
-
-
-@torch.library.custom_op("repro_torch::subround_points", mutates_args=())
-def _subround_points_op(args: list[torch.Tensor], batched: list[bool],
-                        p: int, queue_size: int, max_frags: int,
-                        max_serves: int) -> list[torch.Tensor]:
-    """``p`` switch instances: ``subround_batched``'s one launch."""
-    from .subround import ref as sr_ref
-    from .subround.ops import subround_batched
-
-    if kernel_backend(args[0].device) == "ref":
-        outs = _per_point(
-            lambda *a: sr_ref.subround_ref(*a, queue_size=queue_size,
-                                           max_frags=max_frags,
-                                           max_serves=max_serves),
-            p, args, batched)
-    else:
-        outs = list(subround_batched(args, batched, p, queue_size, max_frags,
-                                     max_serves))
-    return _unaliased(outs, args)
-
-
-def _subround_points_vmap(info, in_dims, args, batched, p, queue_size,
-                          max_frags, max_serves):
-    q = info.batch_size
-    args, batched = _fold(q, p, args, in_dims[0], batched)
-    return _unfold(_subround_points_op(args, batched, q * p, queue_size,
-                                       max_frags, max_serves), q, p)
-
-
-torch.library.register_vmap("repro_torch::subround_points",
-                            _subround_points_vmap)
-
-
-# -- count-min --------------------------------------------------------------
-@torch.library.custom_op("repro_torch::cms_update_query", mutates_args=())
-def _cms_op(hkey: torch.Tensor, mask: torch.Tensor, counts: torch.Tensor,
-            block_b: int) -> tuple[torch.Tensor, torch.Tensor]:
-    return tuple(_unaliased(cms_update_query(hkey, mask, counts, block_b),
-                            (hkey, mask, counts)))
-
-
-def _cms_vmap(info, in_dims, hkey, mask, counts, block_b):
-    from .cms import ops
-
-    p = info.batch_size
-    hkey, mask, counts = (_front(a, d) for a, d in
-                          zip((hkey, mask, counts), in_dims[:3]))
-    # per-point sketches: the rule's outputs always carry the point axis
-    if in_dims[1] is None:
-        mask = mask.expand((p,) + mask.shape)
-    if in_dims[2] is None:
-        counts = counts.expand((p,) + counts.shape)
-    idx = ops.rows_for(hkey, counts.shape[-1])     # [P, B, 5] or [B, 5]
-    tile = ops.tile_for(hkey.shape[-2], block_b)
-    return tuple(_cms_points_op(idx, mask, counts, tile)), (0, 0)
-
-
-torch.library.register_vmap("repro_torch::cms_update_query", _cms_vmap)
-
-
-@torch.library.custom_op("repro_torch::cms_points", mutates_args=())
-def _cms_points_op(idx: torch.Tensor, mask: torch.Tensor,
-                   counts: torch.Tensor, tile: int,
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """P points' sketches ``counts[P, n, 5, W]``, ``mask[P, n, B]``, row
-    indices ``idx[P, B, 5]`` or shared ``[B, 5]``: ``update_query_batched``'s
-    one launch."""
-    from .cms import ops
-    from .cms import ref as cms_ref
-
-    if kernel_backend(idx.device) == "ref":
-        outs = _per_point(
-            lambda i, m, c: cms_ref.cms_update_query_fast(
-                i, m.to(torch.int32), c, block_b=tile),
-            counts.shape[0], (idx, mask, counts), (idx.dim() == 3, 1, 1))
-    else:
-        outs = ops.update_query_batched(idx, mask, counts, tile)
-    return tuple(_unaliased(outs, (idx, mask, counts)))
-
-
-def _cms_points_vmap(info, in_dims, idx, mask, counts, tile):
-    q, dims = info.batch_size, in_dims[:3]
-    p = _front(counts, dims[2]).shape[-4]      # [(Q,) P, n, 5, W]
-    args, _ = _fold(q, p, (idx, mask, counts), dims,
-                    _has_points((idx, mask, counts), dims, (2, 2, 3)))
-    return tuple(_unfold(_cms_points_op(*args, tile), q, p)[0]), (0, 0)
-
-
-torch.library.register_vmap("repro_torch::cms_points", _cms_points_vmap)
-
-
-# -- hot_gather -------------------------------------------------------------
-@torch.library.custom_op("repro_torch::hot_gather", mutates_args=())
-def _hot_gather_op(ids: torch.Tensor, hot_ids: torch.Tensor,
-                   rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    return tuple(_unaliased(hot_gather(ids, hot_ids, rows),
-                            (ids, hot_ids, rows)))
-
-
-def _hot_gather_vmap(info, in_dims, ids, hot_ids, rows):
-    args = [_front(a, d) for a, d in zip((ids, hot_ids, rows), in_dims)]
-    return tuple(_hot_gather_points_op(*args, info.batch_size)), (0, 0)
-
-
-torch.library.register_vmap("repro_torch::hot_gather", _hot_gather_vmap)
-
-
-@torch.library.custom_op("repro_torch::hot_gather_points", mutates_args=())
-def _hot_gather_points_op(ids: torch.Tensor, hot_ids: torch.Tensor,
-                          rows: torch.Tensor, p: int,
-                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """P points, each input ``[P, ...]`` or shared (one rank less):
-    ``hot_gather_batched``'s one launch."""
-    from .hot_gather import ops
-    from .hot_gather import ref as hg_ref
-
-    args = (ids, hot_ids, rows)
-    if kernel_backend(ids.device) == "ref":
-        outs = _per_point(hg_ref.hot_gather_ref, p, args,
-                          _has_points(args, (None,) * 3, (1, 1, 2)))
-    else:
-        outs = ops.hot_gather_batched(*args, p)
-    return tuple(_unaliased(outs, args))
-
-
-def _hot_gather_points_vmap(info, in_dims, ids, hot_ids, rows, p):
-    q, args = info.batch_size, (ids, hot_ids, rows)
-    args, _ = _fold(q, p, args, in_dims[:3],
-                    _has_points(args, in_dims[:3], (1, 1, 2)))
-    return tuple(_unfold(_hot_gather_points_op(*args, q * p), q, p)[0]), \
-        (0, 0)
-
-
-torch.library.register_vmap("repro_torch::hot_gather_points",
-                            _hot_gather_points_vmap)
-
-
-# -- reply_values -----------------------------------------------------------
-@torch.library.custom_op("repro_torch::reply_values", mutates_args=())
-def _reply_values_op(kidx: torch.Tensor, version: torch.Tensor,
-                     vlen: torch.Tensor, carries_val: torch.Tensor,
-                     max_frags: int, pad: int) -> torch.Tensor:
-    return reply_values(kidx, version, vlen, carries_val, max_frags, pad)
-
-
-def _reply_values_vmap(info, in_dims, kidx, version, vlen, carries_val,
-                       max_frags, pad):
-    args = [_front(a, d) for a, d in
-            zip((kidx, version, vlen, carries_val), in_dims[:4])]
-    return _reply_values_points_op(*args, info.batch_size, max_frags,
-                                   pad), 0
-
-
-torch.library.register_vmap("repro_torch::reply_values",
-                            _reply_values_vmap)
-
-
-@torch.library.custom_op("repro_torch::reply_values_points",
-                         mutates_args=())
-def _reply_values_points_op(kidx: torch.Tensor, version: torch.Tensor,
-                            vlen: torch.Tensor, carries_val: torch.Tensor,
-                            p: int, max_frags: int, pad: int,
-                            ) -> torch.Tensor:
-    """P points, each input ``[P, n, cap]`` or shared ``[n, cap]``:
-    ``reply_values_batched``'s one launch (on ``ref`` the plain version
-    once, the shared inputs broadcast)."""
-    from .reply_values import ops
-    from .reply_values import ref as rv_ref
-
-    args = (kidx, version, vlen, carries_val)
-    if kernel_backend(kidx.device) == "ref":
-        return rv_ref.reply_values_ref(*args, max_frags, pad)
-    return ops.reply_values_batched(*args, p, max_frags, pad)
-
-
-def _reply_values_points_vmap(info, in_dims, kidx, version, vlen,
-                              carries_val, p, max_frags, pad):
-    q, args = info.batch_size, (kidx, version, vlen, carries_val)
-    args, _ = _fold(q, p, args, in_dims[:4],
-                    _has_points(args, in_dims[:4], (2,) * 4))
-    out = _reply_values_points_op(*args, q * p, max_frags, pad)
-    return out.reshape((q, p) + out.shape[1:]), 0
-
-
-torch.library.register_vmap("repro_torch::reply_values_points",
-                            _reply_values_points_vmap)
+_subround_op = _kernel_op("subround", _SUBROUND_BASE, _subround)
+_cms_op = _kernel_op("cms_update_query", _CMS_BASE, _cms)
+_hot_gather_op = _kernel_op("hot_gather", _HOT_GATHER_BASE, _hot_gather)
+_reply_values_op = _kernel_op("reply_values", _REPLY_VALUES_BASE,
+                              _reply_values)

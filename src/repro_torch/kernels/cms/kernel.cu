@@ -22,10 +22,11 @@
 //
 // A fleet of P racks launches its P x n sketches at once: sketch s reads
 // the row indices of point s / n (an index stride of 0 shares one batch of
-// indices between all sketches, the serial launch).  At the rack's shape a
-// launch for P = 4 and 12 points (128 and 384 blocks) takes 7.3 and 22.8
-// us, against 27 and 81 for P serial launches; at P = 12 the batch moves
-// 36 MB, 10.8 us of HBM time (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+// indices between all sketches, as one rack's launch does).  At the
+// rack's shape a launch for P = 4 and 12 points (128 and 384 blocks) takes
+// 7.3 and 22.8 us, against 27 and 81 for P one-rack launches; at P = 12
+// the batch moves 36 MB, 10.8 us of HBM time (chip_smoke.py, NVIDIA H100
+// 80GB HBM3, 700 W).
 //
 // Design.  The TPU kernel keeps the sketch resident in VMEM across its
 // sequential grid steps and turns each tile into [TB, W] one-hot products
@@ -317,19 +318,11 @@ int launch_with(K kernel, const void* idx, long long idx_stride, int per,
 
 extern "C" {
 
-// idx int32[B, 5]; mask int32[n, B]; counts_in/out int32[n, 5, W];
-// est int32[n, B] (device addresses).  Returns a cudaError_t; 0 means the
-// launch was accepted.
-int cms_launch(const void* idx, const void* mask, const void* counts_in,
-               void* counts_out, void* est, int n, int B, int W, int tile,
-               void* stream) {
-  return launch_with(cms_kernel<true>, idx, 0, 1, mask, counts_in,
-                     counts_out, est, n, B, W, tile, stream);
-}
-
-// n sketches whose row indices come per point: sketch s reads
-// idx + (s / per) * idx_stride (int32[P, B, 5] with idx_stride = 5B and
-// n = P * per); the rest as cms_launch.
+// n sketches, one block each: mask int32[n, B], counts_in/out
+// int32[n, 5, W], est int32[n, B]; sketch s reads its row indices at
+// idx + (s / per) * idx_stride (int32[n / per, B, 5] with idx_stride = 5B;
+// 0 shares one idx[B, 5]) (device addresses).  Returns a cudaError_t; 0
+// means the launch was accepted.
 int cms_batched_launch(const void* idx, long long idx_stride, int per,
                        const void* mask, const void* counts_in,
                        void* counts_out, void* est, int n, int B, int W,
@@ -338,7 +331,8 @@ int cms_batched_launch(const void* idx, long long idx_stride, int per,
                      counts_in, counts_out, est, n, B, W, tile, stream);
 }
 
-// The same launch of a kernel that does nothing: the launch floor.
+// The same launch, every sketch reading one idx[B, 5], of a kernel that
+// does nothing: the launch floor.
 int cms_empty_launch(const void* idx, const void* mask, const void* counts_in,
                      void* counts_out, void* est, int n, int B, int W,
                      int tile, void* stream) {

@@ -15,8 +15,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _BATCHED_ARGS = [_P, ctypes.c_longlong, _I] + _ARGS[1:]
 LIB = KernelLibrary("cms", Path(__file__).with_name("kernel.cu"),
-                    {"cms_launch": _ARGS, "cms_empty_launch": _ARGS,
-                     "cms_batched_launch": _BATCHED_ARGS})
+                    {"cms_batched_launch": _BATCHED_ARGS,
+                     "cms_empty_launch": _ARGS})
 
 
 THREADS = 512
@@ -49,31 +49,23 @@ def max_width() -> int:
         // DEPTH
 
 
-def launch(idx: int, mask: int, counts_in: int, counts_out: int, est: int,
-           n: int, b: int, width: int, tile: int, stream: int,
-           empty: bool = False) -> None:
+def launch(idx: int, idx_stride: int, per: int, mask: int, counts_in: int,
+           counts_out: int, est: int, n: int, b: int, width: int, tile: int,
+           stream: int, empty: bool = False) -> None:
     """Launch one block of 512 threads per sketch on ``stream`` (device
-    addresses of int32 ``idx[B, 5]``, ``mask[n, B]``, ``counts[n, 5, W]``
-    in and out and ``est[n, B]``).  ``empty`` launches a kernel that does nothing, with
-    the same grid and shared memory, to time the launch floor."""
+    addresses of int32 ``mask[n, B]``, ``counts[n, 5, W]`` in and out and
+    ``est[n, B]``): sketch ``s`` reads its row indices at ``idx + (s //
+    per) * idx_stride`` (int32 ``idx[n // per, B, 5]``, ``idx_stride`` =
+    5B; 0 shares one ``idx[B, 5]``).  ``empty`` launches a kernel that
+    does nothing, with the same grid and shared memory, to time the launch
+    floor."""
     check_smem(smem_bytes(width, b),
                f"cms kernel: a [{DEPTH}, {width}] sketch beside a list of "
                f"{THREADS} lanes (W must stay <= "
                f"{max_width()}; the sketch is not truncated)")
-    fn = "cms_empty_launch" if empty else "cms_launch"
-    LIB.call(fn, _P(idx), _P(mask), _P(counts_in), _P(counts_out), _P(est),
-             n, b, width, tile, _P(stream))
-
-
-def launch_batched(idx: int, idx_stride: int, per: int, mask: int,
-                   counts_in: int, counts_out: int, est: int, n: int, b: int,
-                   width: int, tile: int, stream: int) -> None:
-    """:func:`launch` with row indices per point: sketch ``s`` of the
-    ``n`` reads ``idx + (s // per) * idx_stride`` (int32 ``idx[n // per,
-    B, 5]``, ``idx_stride`` = 5B; 0 shares one ``idx[B, 5]``)."""
-    check_smem(smem_bytes(width, b),
-               f"cms kernel: a [{DEPTH}, {width}] sketch (W must stay <= "
-               f"{max_width()})")
-    LIB.call("cms_batched_launch", _P(idx), idx_stride, per, _P(mask),
-             _P(counts_in), _P(counts_out), _P(est), n, b, width, tile,
-             _P(stream))
+    rest = (_P(mask), _P(counts_in), _P(counts_out), _P(est), n, b, width,
+            tile, _P(stream))
+    if empty:
+        LIB.call("cms_empty_launch", _P(idx), *rest)
+    else:
+        LIB.call("cms_batched_launch", _P(idx), idx_stride, per, *rest)

@@ -51,8 +51,8 @@
 // controller's zero rows) and writing its point's out and hit.  Each block
 // builds its own point's tables, so the order rules above hold per point.
 // At 2,048 ids against 2,048 hot ids a launch for P = 4 and 12 takes 3.3
-// and 5.2 us, against 12.7 and 38.1 for P serial launches (chip_smoke.py,
-// NVIDIA H100 80GB HBM3, 700 W).
+// and 5.2 us, against 12.7 and 38.1 for P one-point launches
+// (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
 // Shared memory: 8 bytes per slot and 4 per hot id of a chunk, 72 KB at
 // C = 2,048 and 144 KB from C = 4,096 on.
 //
@@ -258,20 +258,12 @@ int launch_with(const void* ids, const void* hot, const void* rows,
 
 extern "C" {
 
-// ids int32[B]; hot int32[C]; rows [C, D] and out [B, D] of the row type
-// (dtype 0: int32, 1: float32, 2: bf16); hit int32[B] (device
-// addresses).  Returns a cudaError_t; 0 means the launch was accepted.
-int hot_gather_launch(const void* ids, const void* hot, const void* rows,
-                      void* out, void* hit, int B, int C, int D, int dtype,
-                      void* stream) {
-  const long long none[3] = {0, 0, 0};
-  return launch_with<true>(ids, hot, rows, out, hit, none, 1, B, C, D, dtype,
-                           stream);
-}
-
-// P points in one launch: the arrays of point 0 as above, out [P, B, D]
-// and hit [P, B] stacked, and the per-point strides in elements of ids,
-// hot and rows (0 for an input every point shares).
+// P points in one launch (grid z = P): point 0's ids int32[B], hot
+// int32[C] and rows [C, D] of the row type (dtype 0: int32, 1: float32,
+// 2: bf16), each with its per-point stride in elements (0 for an input
+// every point shares); out [P, B, D] of the row type and hit int32[P, B]
+// stacked (device addresses).  Returns a cudaError_t; 0 means the launch
+// was accepted.
 int hot_gather_batched_launch(const void* ids, long long s_ids,
                               const void* hot, long long s_hot,
                               const void* rows, long long s_rows, void* out,
@@ -282,7 +274,7 @@ int hot_gather_batched_launch(const void* ids, long long s_ids,
                            stream);
 }
 
-// The same launch of a kernel that does nothing: the launch floor.
+// One point's launch of a kernel that does nothing: the launch floor.
 int hot_gather_empty_launch(const void* ids, const void* hot,
                             const void* rows, void* out, void* hit, int B,
                             int C, int D, int dtype, void* stream) {

@@ -1,7 +1,8 @@
 """Wrapper for the orbit_match kernel.
 
-On CUDA tensors it launches the Hopper kernel (``kernel.cu``); on CPU
-tensors it runs the plain version (``ref.orbit_match_ref``).  The
+:func:`orbit_match` launches the Hopper kernel (``kernel.cu``) on CUDA
+tensors and refuses any other (``repro_torch.kernels`` runs the plain
+version, ``ref.orbit_match_ref``, where the kernel does not).  The
 reference pads C to a multiple of 128 with unoccupied entries and B to its
 lane tile with ``pop_mask = 0``; neither changes a result, and the kernel
 takes any B and C, so nothing is padded.  Hash words are int32 tensors
@@ -11,21 +12,17 @@ from __future__ import annotations
 
 import torch
 
-from . import ref
-
 I32 = torch.int32
 
 
 def orbit_match(hkey, table_hkeys, occupied, valid, pop_mask=None):
-    """``(cidx, hit, valid_hit, pop)`` (int32) for ``hkey[B, 4]`` against
-    ``table_hkeys[C, 4]`` with ``occupied``/``valid`` flags [C] and an
-    optional ``pop_mask[B]``."""
+    """``(cidx, hit, valid_hit, pop)`` (int32) on the card for
+    ``hkey[B, 4]`` against ``table_hkeys[C, 4]`` with ``occupied``/``valid``
+    flags [C] and an optional ``pop_mask[B]``."""
     dev = hkey.device
-    if dev.type == "cpu":
-        return ref.orbit_match_ref(hkey, table_hkeys, occupied, valid,
-                                   pop_mask)
     if dev.type != "cuda":
-        raise ValueError(f"orbit_match: no kernel for device {dev}")
+        raise ValueError(f"orbit_match: the kernel takes CUDA tensors, not "
+                         f"{dev}")
 
     from repro_torch.kernels import LAUNCHES
 

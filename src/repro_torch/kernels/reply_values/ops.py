@@ -1,7 +1,8 @@
 """Wrapper for the reply_values kernel.
 
-On CUDA tensors it launches the Hopper kernel (``kernel.cu``); on CPU
-tensors it runs the plain version (``ref.reply_values_ref``).  Inputs are
+:func:`reply_values` launches the Hopper kernel (``kernel.cu``) on CUDA
+tensors and refuses any other (``repro_torch.kernels`` runs the plain
+version, ``ref.reply_values_ref``, where the kernel does not).  Inputs are
 a server step's ``[n, cap]`` lanes: int32 ``kidx``, ``version`` and
 ``vlen`` and bool ``carries_val``; the output is uint8[n * cap * F, pad].
 """
@@ -9,35 +10,25 @@ from __future__ import annotations
 
 import torch
 
-from . import ref
-
 I32 = torch.int32
 MAX_BYTES = 2**31     # the kernel indexes its output in uint32
 
 
 def reply_values(kidx, version, vlen, carries_val, max_frags: int,
-                 pad: int):
-    """uint8[n * cap * max_frags, pad] for ``[n, cap]`` lanes."""
-    return reply_values_batched(kidx, version, vlen, carries_val, None,
-                                max_frags, pad)
+                 pad: int, p: int | None = None):
+    """uint8[n * cap * max_frags, pad] on the card for ``[n, cap]`` lanes,
+    in one launch.
 
-
-def reply_values_batched(kidx, version, vlen, carries_val, p: int | None,
-                         max_frags: int, pad: int):
-    """``p`` points in one call: each input ``[p, n, cap]``, or ``[n, cap]``
-    when every point shares it (at least one input has the axis);
-    uint8[p, n * cap * max_frags, pad].  ``p`` None: one rack, every input
-    ``[n, cap]``, no point axis on the output.
-
-    On CUDA tensors one launch; on CPU tensors the plain version once."""
+    ``p`` an int: ``p`` points, each input ``[p, n, cap]``, or ``[n, cap]``
+    where every point shares it (a stride of 0);
+    uint8[p, n * cap * max_frags, pad]."""
     args = (kidx, version, vlen, carries_val)
     n, cap = kidx.shape[-2:]
     own = [a.dim() == 3 for a in args]
     dev = kidx.device
-    if dev.type == "cpu":
-        return ref.reply_values_ref(*args, max_frags, pad)
     if dev.type != "cuda":
-        raise ValueError(f"reply_values: no kernel for device {dev}")
+        raise ValueError(f"reply_values: the kernel takes CUDA tensors, not "
+                         f"{dev}")
 
     from repro_torch.kernels import LAUNCHES
 

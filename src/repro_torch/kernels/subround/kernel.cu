@@ -51,11 +51,11 @@
 // A fleet of P racks (the reference vmaps this kernel over its sweep
 // points inside one pallas_call) launches P blocks, one switch instance
 // each: block p offsets every array by p times its per-point stride, and an
-// input the points share has stride 0.  The serial launch is the same
-// kernel with the offsets compiled out, and the wrapper takes it for one
-// point: the offsets cost about 1 us a launch (8.4 against 7.4 at P = 1).
-// At P = 4 and 12 a launch takes 8.3 and 8.7 us, against 30 and 89 for
-// P serial launches (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+// input the points share has stride 0.  One rack is P = 1 with strides
+// of 0: 8.34 us a launch, 0.94 more than a copy of the kernel with the
+// offsets compiled out would take, a cost no measured workload pays.  At
+// P = 4 and 12 a launch takes 8.6 and 8.7 us, against 30 and 89 for P
+// one-rack launches (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
 // No float arithmetic: `ts` travels as its 32-bit pattern.  Every array is
 // 4-byte, so the kernel sees them all as int32.
 //
@@ -92,28 +92,25 @@ enum Out {
 struct Params {
   const int32_t* in[kIn];
   int32_t* out[kOut];
-  int str[kIn + kOut];   // per-point strides in elements (batched launch)
+  int str[kIn + kOut];   // per-point strides in elements
   int B, C, S, F, J;
 };
 
-// The arrays of one switch instance.  A batched launch runs one instance
-// per block, block p reading and writing each array `p x its stride` on
-// (a stride of 0 shares an input between the points); the serial launch
-// reads the pointers as they are.
-template <bool kBatched>
+// The arrays of one switch instance.  A launch runs one instance per
+// block, block p reading and writing each array `p x its stride` on (a
+// stride of 0 shares an input between the points).
 struct Inputs {
   const Params& p;
   long long pt;
   __device__ __forceinline__ const int32_t* operator[](int k) const {
-    return kBatched ? p.in[k] + pt * p.str[k] : p.in[k];
+    return p.in[k] + pt * p.str[k];
   }
 };
-template <bool kBatched>
 struct Outputs {
   const Params& p;
   long long pt;
   __device__ __forceinline__ int32_t* operator[](int k) const {
-    return kBatched ? p.out[k] + pt * p.str[kIn + k] : p.out[k];
+    return p.out[k] + pt * p.str[kIn + k];
   }
 };
 
@@ -155,16 +152,14 @@ __device__ __forceinline__ Lane load_lane(const In& in, int b, bool hk_vec) {
   return l;
 }
 
-template <bool kBatched>
 __global__ void __launch_bounds__(kThreads) subround_kernel(Params p) {
   extern __shared__ __align__(16) int32_t sm[];
   const int B = p.B, C = p.C, S = p.S, F = p.F, J = p.J;
   const int C4 = (C + 3) & ~3, CF = C * F, CS = C * S;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const long long pt = kBatched ? blockIdx.x : 0;
-  const Inputs<kBatched> in{p, pt};
-  const Outputs<kBatched> out{p, pt};
+  const Inputs in{p, blockIdx.x};
+  const Outputs out{p, blockIdx.x};
 
   int4* s_thk = reinterpret_cast<int4*>(sm);  // [C4] hash words per entry
   int32_t* s_k0 = sm + 4 * C4;        // [C4] first hash word, 16-B aligned
@@ -491,25 +486,19 @@ int launch_with(K kernel, const unsigned long long* ptrs, const int* strides,
 
 extern "C" {
 
-// ptrs: the 31 inputs then the 32 outputs (device addresses, 4-byte
-// elements).  Returns a cudaError_t; 0 means the launch was accepted.
-int subround_launch(const unsigned long long* ptrs, int B, int C, int S,
-                    int F, int J, void* stream) {
-  return launch_with(subround_kernel<false>, ptrs, nullptr, 1, B, C, S, F,
-                     J, stream);
-}
-
-// P switch instances in one launch, one block each: ptrs as above, the
-// arrays of point 0; strides: the 63 per-point strides in elements, the
-// inputs' then the outputs' (0 for an input all points share).
+// P switch instances in one launch, one block each.  ptrs: point 0's 31
+// inputs then its 32 outputs (device addresses, 4-byte elements);
+// strides: the 63 per-point strides in elements, the inputs' then the
+// outputs' (0 for an input all points share).  Returns a cudaError_t; 0
+// means the launch was accepted.
 int subround_batched_launch(const unsigned long long* ptrs,
                             const int* strides, int P, int B, int C, int S,
                             int F, int J, void* stream) {
-  return launch_with(subround_kernel<true>, ptrs, strides, P, B, C, S, F, J,
+  return launch_with(subround_kernel, ptrs, strides, P, B, C, S, F, J,
                      stream);
 }
 
-// The same launch of empty_kernel, to time the launch floor.
+// One instance's launch of empty_kernel, to time the launch floor.
 int subround_empty_launch(const unsigned long long* ptrs, int B, int C,
                           int S, int F, int J, void* stream) {
   return launch_with(empty_kernel, ptrs, nullptr, 1, B, C, S, F, J, stream);

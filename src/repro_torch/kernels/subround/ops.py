@@ -1,7 +1,8 @@
 """Wrapper for the subround kernel: ``SubroundOuts`` and the launch.
 
-On CUDA tensors it launches the Hopper kernel (``kernel.cu``); on CPU
-tensors it runs the plain version (``ref.subround_ref``).  Any B and any
+:func:`subround` launches the Hopper kernel (``kernel.cu``) on CUDA
+tensors and refuses any other (``repro_torch.kernels`` runs the plain
+version, ``ref.subround_ref``, where the kernel does not).  Any B and any
 C: the kernel needs no padding, and the outputs have the caller's shapes.
 """
 from __future__ import annotations
@@ -9,8 +10,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-
-from .ref import subround_ref
 
 I32, F32 = torch.int32, torch.float32
 
@@ -71,7 +70,11 @@ def _arg_shapes(b, c, s, f):
             + [(c * s,)] * 6 + [(c,)] * 3 + [(c * f,)] * 4 + [(c,)])
 
 
-def _check_args(args, dev, b, c, s, f, j, lead=()):
+# the 31 arguments' ranks in one instance: the 30 arrays and the budget
+BASE_RANKS = tuple(len(shp) for shp in _arg_shapes(1, 1, 1, 1)) + (0,)
+
+
+def _check_args(args, dev, b, c, s, f, j, lead):
     """Raise unless every array argument has its kernel's dtype and the
     shape ``lead + (one instance's shape)`` (``lead`` per argument) on
     ``dev``."""
@@ -80,7 +83,7 @@ def _check_args(args, dev, b, c, s, f, j, lead=()):
                          f"F={f}, J={j})")
     for i, (a, shp) in enumerate(zip(args, _arg_shapes(b, c, s, f))):
         want_dt = F32 if i in _FLOAT_IN else I32
-        shp = tuple(lead[i]) + shp if lead else shp
+        shp = tuple(lead[i]) + shp
         if a.device != dev or a.dtype != want_dt or tuple(a.shape) != shp:
             raise ValueError(
                 f"subround: argument {i} is {a.dtype}{tuple(a.shape)} on "
@@ -100,83 +103,43 @@ def subround(
     rt_client, rt_seq, rt_port, rt_ts, rt_acked, rt_kidx, qlen, front, rear,
     ob_live, ob_kidx, ob_version, ob_vlen, ob_frags,
     budget,
-    queue_size: int, max_frags: int, max_serves: int,
+    queue_size: int, max_frags: int, max_serves: int, p: int | None = None,
 ) -> SubroundOuts:
-    """The fused subround pass: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    """The fused subround pass on the card, one launch of one block of 512
+    threads per switch instance.
+
+    ``p`` None: one instance, each argument of the shape
+    :func:`_arg_shapes` gives (the budget a scalar).  ``p`` an int: ``p``
+    instances, each argument with a leading point axis of ``p``, or
+    without it where every point shares it (a stride of 0), and every
+    output with the point axis."""
     args = [hkey, want, wreq, inst, frag, nfrags, kidx, vlen, client, seq,
             port, ts, table_hkeys, occupied, st_valid, st_version,
             rt_client, rt_seq, rt_port, rt_ts, rt_acked, rt_kidx, qlen,
             front, rear, ob_live, ob_kidx, ob_version, ob_vlen, ob_frags]
     s, f, j = queue_size, max_frags, max_serves
     dev = hkey.device
-    if dev.type == "cpu":
-        return SubroundOuts(*subround_ref(
-            *args, budget, queue_size=s, max_frags=f, max_serves=j))
     if dev.type != "cuda":
-        raise ValueError(f"subround: no kernel for device {dev}")
+        raise ValueError(f"subround: the kernel takes CUDA tensors, not "
+                         f"{dev}")
 
     from . import kernel
     from repro_torch.kernels import LAUNCHES
 
-    b, c = hkey.shape[0], table_hkeys.shape[0]
-    _check_args(args, dev, b, c, s, f, j)
-    args = [a.contiguous() for a in args]
-    budget = torch.as_tensor(budget, device=dev).to(I32).reshape(1)
-    outs = _outputs((), b, c, s, f, j, dev)
-    ptrs = [a.data_ptr() for a in args] + [budget.data_ptr()] \
-        + [o.data_ptr() for o in outs]
-    kernel.launch(ptrs, b, c, s, f, j,
-                  torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES["subround"] += 1
-    return SubroundOuts(*outs)
-
-
-def subround_batched(args, batched, p: int, queue_size: int, max_frags: int,
-                     max_serves: int) -> SubroundOuts:
-    """P switch instances in one call: ``args`` are the 30 arrays and the
-    budget of :func:`subround`, each with a leading point axis of ``p``
-    where ``batched[i]``, else one value all points share.  Returns
-    ``SubroundOuts`` with a leading point axis.
-
-    On CUDA tensors one launch of P blocks (P = 1: the serial kernel, the
-    batched one's offsets cost it about 1 µs); on CPU tensors the plain
-    version once per point."""
-    s, f, j = queue_size, max_frags, max_serves
-    dev = args[0].device
-    if len(args) != 31 or len(batched) != 31:
-        raise ValueError("subround_batched: 31 arguments (30 arrays and "
-                         "the budget) and 31 batched flags")
-    if dev.type == "cpu":
-        per = [subround_ref(*(a[i] if bt else a
-                              for a, bt in zip(args, batched)),
-                            queue_size=s, max_frags=f, max_serves=j)
-               for i in range(p)]
-        return SubroundOuts(*(torch.stack(x) for x in zip(*per)))
-    if dev.type != "cuda":
-        raise ValueError(f"subround: no kernel for device {dev}")
-
-    from . import kernel
-    from repro_torch.kernels import LAUNCHES
-
-    arrays, budget = args[:30], args[30]
-    b = arrays[0].shape[1 if batched[0] else 0]
-    c = arrays[12].shape[1 if batched[12] else 0]
-    _check_args(arrays, dev, b, c, s, f, j,
-                lead=[(p,) if bt else () for bt in batched[:30]])
-    arrays = [a.contiguous() for a in arrays]
-    budget = torch.as_tensor(budget, device=dev).to(I32).reshape(
-        p if batched[30] else 1).contiguous()
-    outs = _outputs((p,), b, c, s, f, j, dev)
-    ins = arrays + [budget]
+    budget = torch.as_tensor(budget, device=dev).to(I32)
+    ins = args + [budget]
+    own = [p is not None and a.dim() > n for a, n in zip(ins, BASE_RANKS)]
+    pts = 1 if p is None else p
+    b, c = hkey.shape[-2], table_hkeys.shape[-2]
+    _check_args(args, dev, b, c, s, f, j,
+                lead=[(p,) if o else () for o in own[:30]])
+    ins = [a.contiguous() for a in args] + [
+        budget.reshape(pts if own[30] else 1).contiguous()]
+    outs = _outputs(() if p is None else (p,), b, c, s, f, j, dev)
     ptrs = [a.data_ptr() for a in ins] + [o.data_ptr() for o in outs]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if p == 1:      # one instance: the serial kernel, whose time it keeps
-        kernel.launch(ptrs, b, c, s, f, j, stream)
-    else:
-        strides = ([a[0].numel() if bt else 0
-                    for a, bt in zip(ins, batched)]
-                   + [o[0].numel() for o in outs])
-        kernel.launch_batched(ptrs, strides, p, b, c, s, f, j, stream)
+    strides = ([a[0].numel() if o else 0 for a, o in zip(ins, own)]
+               + [o.numel() // pts for o in outs])
+    kernel.launch(ptrs, strides, pts, b, c, s, f, j,
+                  torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["subround"] += 1
     return SubroundOuts(*outs)

@@ -3,8 +3,8 @@
 The JAX ``kernels.cms_update_query`` runs on its ``ref`` backend (the
 tile-ordered gather/scatter oracle) over the whole sweep, and on its
 ``interpret`` backend (the Pallas kernel under the interpreter) over a
-subset.  The port's dispatcher, its wrapper and both plain versions (the
-one-hot transcription and the gather/scatter form) must give the same
+subset.  The port's dispatcher and both plain versions (the one-hot
+transcription and the gather/scatter form) must give the same
 sketch and the same estimates, for one sketch and for a leading axis of
 sketches against a JAX ``vmap``, as the servers run it.  On a card, the
 CUDA kernel must equal the plain version.
@@ -81,14 +81,14 @@ def jax_cms(hk, mask, counts, block_b, backend):
 
 
 def port_forms(hk, mask, counts, block_b):
-    """Every port form of the op on CPU tensors: name -> (counts', est)."""
+    """Every port form of the op on CPU tensors: name -> (counts', est)
+    (the kernel's wrapper takes CUDA tensors only)."""
     hk_t = torch.from_numpy(hk.view(np.int32).copy())
     m_t, c_t = torch.from_numpy(mask), torch.from_numpy(counts)
     idx = ops.rows_for(hk_t, counts.shape[-1])
     tile = ops.tile_for(hk.shape[0], block_b)
     return {
         "dispatcher": kn.cms_update_query(hk_t, m_t, c_t, block_b=block_b),
-        "wrapper": ops.cms_update_query(hk_t, m_t, c_t, block_b=block_b),
         "fast": ref.cms_update_query_fast(idx, m_t, c_t, block_b=tile),
         "one_hot": ref.cms_update_query_ref(idx, m_t, c_t, block_b=tile),
     }
@@ -159,9 +159,20 @@ def test_tile_order_changes_the_estimates():
 
 
 def test_wrapper_runs_plain_version_on_cpu():
+    """On CPU tensors the dispatcher runs the plain version and launches
+    nothing; the wrapper, the kernel's only launch path, refuses them."""
     hk, mask, counts = make_case(3, 45, 64, 0.5, n=4)
     kn.reset_launch_counts()
-    port_forms(hk, mask, counts, 256)
+    forms = port_forms(hk, mask, counts, 256)
+    for g, w in zip(forms["dispatcher"], forms["fast"]):
+        assert torch.equal(g, w)
+    assert kn.LAUNCHES["cms"] == 0 and kn.CALLS["cms"] == 1
+    hk_t = torch.from_numpy(hk.view(np.int32).copy())
+    idx = ops.rows_for(hk_t, counts.shape[-1])
+    m_t, c_t = torch.from_numpy(mask), torch.from_numpy(counts)
+    for p in (None, 4):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ops.update_query(idx, m_t, c_t, 45, p)
     assert kn.LAUNCHES["cms"] == 0
 
 
@@ -169,10 +180,10 @@ def test_kernel_refuses_a_sketch_over_shared_memory():
     """A width whose sketch exceeds one block's shared memory is refused
     before anything is built or launched."""
     with pytest.raises(ValueError, match="shared memory"):
-        cms_kernel.launch(0, 0, 0, 0, 0, 1, 8, 20_000, 8, 0)
+        cms_kernel.launch(0, 0, 1, 0, 0, 0, 0, 1, 8, 20_000, 8, 0)
     wmax = cms_kernel.max_width()
     with pytest.raises(ValueError, match="shared memory"):
-        cms_kernel.launch(0, 0, 0, 0, 0, 1, 8, wmax + 1, 8, 0)
+        cms_kernel.launch(0, 0, 1, 0, 0, 0, 0, 1, 8, wmax + 1, 8, 0)
     assert cms_kernel.smem_bytes(wmax, 1) <= 232_448
     # the rack's sketches beside its whole batch, and the widest batch
     assert cms_kernel.unit_lanes(1408, 2048) >= 1408
@@ -232,9 +243,9 @@ def batched_cms_case(seed, p, b, w, n, shared):
 @pytest.mark.parametrize("sharing", list(CMS_SHARING))
 def test_batched_cms_matches_plain_and_jax_vmap(p, sharing):
     """The dispatcher under ``torch.func.vmap`` (the batching rule: per
-    point row indices, P x n sketches) and the batched wrapper equal the
-    plain version once per point and the reference vmapped over the points
-    and the servers."""
+    point row indices, P x n sketches) and the points op called directly
+    equal the plain version once per point and the reference vmapped over
+    the points and the servers."""
     b, w, n, block_b = 257, 64, 4, 32
     (hk, mask, counts), dims = batched_cms_case(
         31 * p, p, b, w, n, CMS_SHARING[sharing])
@@ -246,8 +257,8 @@ def test_batched_cms_matches_plain_and_jax_vmap(p, sharing):
     tile = ops.tile_for(b, block_b)
     exp = lambda a, d: a if d is not None else a.expand((p,) + a.shape)
     idx = ops.rows_for(hk_t, w)
-    direct = ops.update_query_batched(idx, exp(m_t, dims[1]),
-                                      exp(c_t, dims[2]), tile)
+    direct = torch.ops.repro_torch.cms_update_query_points(
+        [hk_t, exp(m_t, dims[1]), exp(c_t, dims[2])], p, [tile])
     pt = lambda a, d, i: a if d is None else a[i]
     for i in range(p):
         want = ref.cms_update_query_fast(pt(idx, dims[0], i),
@@ -290,7 +301,7 @@ def test_cuda_batched_kernel_matches_plain_version():
                 idx = ops.rows_for(hk_t, w)
                 tile = ops.tile_for(b, blk)
                 before = kn.LAUNCHES["cms"]
-                got = ops.update_query_batched(idx, m_t, c_t, tile)
+                got = ops.update_query(idx, m_t, c_t, tile, p)
                 via = torch.func.vmap(
                     lambda h, m, c: kn.cms_update_query(h, m, c,
                                                         block_b=blk),

@@ -175,10 +175,10 @@ def test_one_op_call_per_call_site_nested(n_points, monkeypatch):
     s = cfg.subrounds
     assert count(lambda: bf.run_windows(2)) == dict(
         subround=2 * 2 * s, cms=2, hot_gather=0)
-    # per window: S spine calls (P points), S rack calls and one count-min
-    # call (P x R points)
+    # per window: S spine calls (P points), S rack calls, one count-min
+    # call and one reply_values call (P x R points)
     assert sorted(per_point) == sorted(
-        ([n_points] * s + [2 * n_points] * (s + 1)) * 2)
+        ([n_points] * s + [2 * n_points] * (s + 2)) * 2)
     assert count(lambda: bf.run_periods(1, 2)) == dict(
         subround=2 * 2 * s, cms=2, hot_gather=6)
 

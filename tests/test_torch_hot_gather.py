@@ -70,9 +70,10 @@ def jax_forms(ids, hot, rows):
 
 
 def port_forms(ids, hot, rows):
+    """The port's forms on CPU tensors (the kernel's wrapper takes CUDA
+    tensors only)."""
     t = lambda a: torch.from_numpy(a)
     return {"dispatcher": kn.hot_gather(t(ids), t(hot), t(rows)),
-            "wrapper": ops.hot_gather(t(ids), t(hot), t(rows)),
             "ref": ref.hot_gather_ref(t(ids), t(hot), t(rows))}
 
 
@@ -109,7 +110,7 @@ BF16_TOL = 2e-2
                                                          "repeated"])
 def test_bf16_rows(b, c, d, distinct):
     """bf16 rows (float32 normals rounded to bf16 the same way in both
-    packages): the port's three forms against the JAX oracle, and against
+    packages): the port's two forms against the JAX oracle, and against
     the Pallas kernel under the interpreter on a subset."""
     ids, hot, rows = make_case(11 * b + c + d, b, c, d, np.float32, distinct)
     jrows = jnp.asarray(rows, jnp.bfloat16)
@@ -124,7 +125,6 @@ def test_bf16_rows(b, c, d, distinct):
     t = torch.from_numpy
     trows = t(rows).to(torch.bfloat16)
     got = {"dispatcher": kn.hot_gather(t(ids), t(hot), trows),
-           "wrapper": ops.hot_gather(t(ids), t(hot), trows),
            "ref": ref.hot_gather_ref(t(ids), t(hot), trows)}
     for pname, (g_out, g_hit) in got.items():
         assert g_out.dtype == torch.bfloat16 and g_hit.dtype == torch.int32
@@ -172,9 +172,18 @@ def test_controller_shapes_and_sentinels():
 
 
 def test_wrapper_runs_plain_version_on_cpu():
+    """On CPU tensors the dispatcher runs the plain version and launches
+    nothing; the wrapper, the kernel's only launch path, refuses them."""
     ids, hot, rows = make_case(1, 30, 20, 1, np.int32, False)
     kn.reset_launch_counts()
-    port_forms(ids, hot, rows)
+    forms = port_forms(ids, hot, rows)
+    for g, w in zip(forms["dispatcher"], forms["ref"]):
+        assert torch.equal(g, w)
+    assert kn.LAUNCHES["hot_gather"] == 0 and kn.CALLS["hot_gather"] == 1
+    t = [torch.from_numpy(a) for a in (ids, hot, rows)]
+    for p in (None, 1):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            ops.hot_gather(*t, p=p)
     assert kn.LAUNCHES["hot_gather"] == 0
 
 
@@ -231,7 +240,7 @@ def test_all_hot_ids_equal(b, c, dtype):
     t = torch.from_numpy
     trows = t(rows).to(torch.bfloat16)
     for g_out, g_hit in (kn.hot_gather(t(ids), t(hot), trows),
-                         ops.hot_gather(t(ids), t(hot), trows)):
+                         ref.hot_gather_ref(t(ids), t(hot), trows)):
         np.testing.assert_array_equal(g_hit.numpy(), np.asarray(w_hit))
         np.testing.assert_allclose(g_out.float().numpy(),
                                    np.asarray(w_out, np.float32),
@@ -353,16 +362,17 @@ def batched_hg_case(seed, p, b, c, d, dtype, distinct, shared):
 @pytest.mark.parametrize("sharing", list(HG_SHARING))
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
 def test_batched_hot_gather_matches_plain_and_jax_vmap(p, sharing, dtype):
-    """The dispatcher under ``torch.func.vmap`` (the batching rule) and the
-    batched wrapper equal the plain version once per point and the
-    reference under ``jax.vmap``; the zero rows that the controller's third
-    call shares between the points are the ``rows`` case."""
+    """The dispatcher under ``torch.func.vmap`` (the batching rule) and
+    the points op called directly equal the plain version once per point
+    and the reference under ``jax.vmap``; the zero rows that the
+    controller's third call shares between the points are the ``rows``
+    case."""
     b, c, d = 128, 200, 1
     args, dims = batched_hg_case(17 * p, p, b, c, d, dtype, True,
                                  HG_SHARING[sharing])
     t = [torch.from_numpy(a) for a in args]
     got = torch.func.vmap(kn.hot_gather, in_dims=dims)(*t)
-    direct = ops.hot_gather_batched(*t, p)
+    direct = torch.ops.repro_torch.hot_gather_points(t, p, [])
     for i in range(p):
         want = ref.hot_gather_ref(*(a if dm is None else a[i]
                                     for a, dm in zip(t, dims)))
@@ -392,7 +402,7 @@ def test_cuda_batched_kernel_matches_plain_version():
                                                  dtype, True, shared)
                     t = [torch.from_numpy(a).cuda() for a in args]
                     before = kn.LAUNCHES["hot_gather"]
-                    got = ops.hot_gather_batched(*t, p)
+                    got = ops.hot_gather(*t, p=p)
                     via = torch.func.vmap(kn.hot_gather, in_dims=dims)(*t)
                     torch.cuda.synchronize()
                     assert kn.LAUNCHES["hot_gather"] == before + 2

@@ -2,8 +2,8 @@
 
 ``cidx`` is the first occupied entry whose 128-bit hash equals the lane's,
 or -1; ``hit``, ``valid_hit`` and the masked per-entry popularity ``pop``
-follow.  The port's dispatcher, wrapper and plain version (all on the CPU)
-must equal the JAX ``orbit_match_ref`` exactly on every case, and the
+follow.  The port's dispatcher and plain version (both on the CPU) must
+equal the JAX ``orbit_match_ref`` exactly on every case, and the
 Pallas kernel under the interpreter on a subset: the sweep, property,
 mask, empty-table and all-invalid cases of ``tests/test_kernels.py``, plus
 duplicate table entries (some unoccupied) and flags of -1 and 2 (a flag is
@@ -76,7 +76,6 @@ def port_forms(case):
     args = port_args(case)
     return {"dispatcher": kn.orbit_match(*args),
             "dispatcher_block_32": kn.orbit_match(*args, block_b=32),
-            "wrapper": ops.orbit_match(*args),
             "ref": ref.orbit_match_ref(*args)}
 
 
@@ -192,12 +191,18 @@ def test_orbit_match_mask_parity():
 
 
 def test_cpu_wrapper_launches_nothing_and_empty_table_raises():
-    """On CPU tensors the wrapper runs the plain version: no launch is
-    counted.  A table of no entries is refused, as the reference's
-    ``argmax`` over an empty axis refuses it."""
+    """On CPU tensors the dispatcher runs the plain version and launches
+    nothing; the wrapper, the kernel's only launch path, refuses them.  A
+    table of no entries is refused, as the reference's ``argmax`` over an
+    empty axis refuses it."""
     hk, tb, occ, val, pm = port_args(make_case(5, 30, 12, mask=True))
     kn.reset_launch_counts()
-    ops.orbit_match(hk, tb, occ, val, pm)
+    got = kn.orbit_match(hk, tb, occ, val, pm)
+    for g, w in zip(got, ref.orbit_match_ref(hk, tb, occ, val, pm)):
+        assert torch.equal(g, w)
+    assert kn.LAUNCHES["orbit_match"] == 0 and kn.CALLS["orbit_match"] == 1
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.orbit_match(hk, tb, occ, val, pm)
     assert kn.LAUNCHES["orbit_match"] == 0
     with pytest.raises(ValueError, match="at least one entry"):
         kn.orbit_match(hk, tb[:0], occ[:0], val[:0])

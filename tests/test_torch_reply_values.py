@@ -82,13 +82,13 @@ CASES = [(3, 5, 1, 16), (2, 7, 2, 17), (4, 3, 3, 8), (1, 1, 1, 1),
 @pytest.mark.parametrize("n,cap,f,pad", CASES)
 @pytest.mark.parametrize("seed", [0, 1])
 def test_reply_values_equal_server_expression(n, cap, f, pad, seed):
-    """The dispatcher, the wrapper and ``ref`` on CPU tensors against the
-    expression ``server_step`` replaced, bit for bit."""
+    """The dispatcher and ``ref`` on CPU tensors against the expression
+    ``server_step`` replaced, bit for bit (the kernel's wrapper takes CUDA
+    tensors only)."""
     args = lanes(seed, n, cap, f, pad)
     want = server_expression(*args, f, pad)
     assert want.dtype == torch.uint8 and want.shape == (n * cap * f, pad)
-    for got in (kn.reply_values(*args, f, pad), ops.reply_values(*args, f,
-                                                                 pad),
+    for got in (kn.reply_values(*args, f, pad),
                 ref.reply_values_ref(*args, f, pad)):
         assert got.dtype == torch.uint8
         assert torch.equal(got, want)
@@ -124,9 +124,9 @@ def test_batching_rule_and_points_op(shared):
         torch._C._functorch._set_vmap_fallback_warning_enabled(False)
     assert torch.equal(got, want)
     assert kn.CALLS["reply_values"] == 1 and kn.LAUNCHES["reply_values"] == 0
-    # the points op itself, and the wrapper's batched form
-    assert torch.equal(kn._reply_values_points_op(*args, p, f, pad), want)
-    assert torch.equal(ops.reply_values_batched(*args, p, f, pad), want)
+    # the points op itself
+    assert torch.equal(torch.ops.repro_torch.reply_values_points(
+        args, p, [f, pad])[0], want)
 
 
 def test_nested_points_fold():
@@ -239,7 +239,7 @@ def test_cuda_kernel_matches_plain_version():
                          p)
         cu = [a.to(dev) for a in args]
         kn.reset_launch_counts()
-        got = ops.reply_values_batched(*cu, p, f, pad)
+        got = ops.reply_values(*cu, f, pad, p=p)
         one = ops.reply_values(*(a if a.dim() == 2 else a[0] for a in cu),
                                f, pad)
         torch.cuda.synchronize()

@@ -139,16 +139,22 @@ def test_targeted_cases_reach_their_edges():
 
 
 def test_wrapper_runs_plain_version_on_cpu():
-    """On CPU tensors the wrapper is the plain version, kernel untouched."""
+    """On CPU tensors the dispatcher runs the plain version and launches
+    nothing; the wrapper, the kernel's only launch path, refuses them."""
     from repro_torch import kernels as kn
     b, c, s, f, j, budget = FIXED_SHAPES[1]
     _, nargs = case(3, b, c, s, f, budget)
     args = to_port(nargs)
     kn.reset_launch_counts()
-    got = subround_op(*args, s, f, j)
+    got = kn.subround(*args, s, f, j)
     want = subround_ref(*args, queue_size=s, max_frags=f, max_serves=j)
     for name, g, w in zip(SubroundOuts._fields, got, want):
         assert torch.equal(g, w), name
+    assert kn.LAUNCHES["subround"] == 0 and kn.CALLS["subround"] == 1
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        subround_op(*args, s, f, j)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        subround_op(*args, s, f, j, p=1)
     assert kn.LAUNCHES["subround"] == 0
 
 
@@ -200,7 +206,7 @@ def test_kernel_refuses_shapes_over_shared_memory():
     before anything is built or launched, with the limit in the message."""
     from repro_torch.kernels.subround import kernel
     with pytest.raises(ValueError, match="shared memory"):
-        kernel.launch([], 60_000, 128, 8, 1, 8, 0)
+        kernel.launch([], [], 1, 60_000, 128, 8, 1, 8, 0)
     assert kernel.smem_bytes(60_000, 128, 8, 1) > kernel.MAX_SMEM_BYTES
     for b in (352, 4096):          # the path's batch and the largest checked
         assert kernel.smem_bytes(b, 128, 8, 1) <= kernel.MAX_SMEM_BYTES
@@ -232,12 +238,11 @@ def point(args, dims, i):
 @pytest.mark.parametrize("sharing", list(SHARING))
 def test_batched_subround_matches_plain_and_jax_vmap(p, sharing):
     """The dispatcher under ``torch.func.vmap`` (the batching rule), and
-    the batched wrapper called directly, equal the plain version once per
-    point and the reference under ``jax.vmap``, shared inputs included."""
+    the points op called directly, equal the plain version once per point
+    and the reference under ``jax.vmap``, shared inputs included."""
     from functools import partial
 
     from repro_torch import kernels as kn
-    from repro_torch.kernels.subround.ops import subround_batched
 
     b, c, s, f, j = BATCH_SHAPE
     nargs, dims = batched_case(700 + p, p, b, c, s, f, SHARING[sharing])
@@ -245,8 +250,7 @@ def test_batched_subround_matches_plain_and_jax_vmap(p, sharing):
     got = SubroundOuts(*torch.func.vmap(
         lambda *a: tuple(kn.subround(*a, s, f, j)), in_dims=tuple(dims))(
             *args))
-    direct = subround_batched(args, [d is not None for d in dims], p, s, f,
-                              j)
+    direct = torch.ops.repro_torch.subround_points(args, p, [s, f, j])
     for i in range(p):
         want = subround_ref(*point(args, dims, i), queue_size=s, max_frags=f,
                             max_serves=j)
@@ -267,7 +271,6 @@ def test_cuda_batched_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the kernel has no CPU mode")
     from repro_torch import kernels as kn
-    from repro_torch.kernels.subround.ops import subround_batched
     for shape in (BATCH_SHAPE, (352, 128, 8, 1, 8)):
         b, c, s, f, j = shape
         for p in (1, 4, 12):
@@ -275,8 +278,7 @@ def test_cuda_batched_kernel_matches_plain_version():
                 nargs, dims = batched_case(50 * p + k, p, b, c, s, f, shared)
                 args = to_port(nargs, "cuda")
                 before = kn.LAUNCHES["subround"]
-                got = subround_batched(args, [d is not None for d in dims],
-                                       p, s, f, j)
+                got = subround_op(*args, s, f, j, p=p)
                 via = torch.func.vmap(
                     lambda *a: tuple(kn.subround(*a, s, f, j)),
                     in_dims=tuple(dims))(*args)
