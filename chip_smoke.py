@@ -12,10 +12,10 @@ line.  With no argument, the phases, each printed on its own
 line; any failure exits non-zero:
 
 1. device: ``nvidia-smi`` name and power limit, torch's device name;
-2. build: ``nvcc`` compiles the five kernels for sm_90a, one process per
+2. build: ``nvcc`` compiles the six kernels for sm_90a, one process per
    source, all started together (``kernels/{subround,cms,hot_gather,
-   orbit_match,reply_values}/kernel.cu``), and prints ``ptxas``'s report
-   for each;
+   orbit_match,reply_values,server_enqueue}/kernel.cu``), and prints
+   ``ptxas``'s report for each;
 3. each kernel against its plain version on the card over fuzz cases,
    the shapes of the paper's rack and cases aimed at its design (exactly;
    bf16 ``hot_gather`` rows within rtol = atol = 2e-2, float32 rows with
@@ -32,9 +32,15 @@ line; any failure exits non-zero:
    fleet's window (12 points x 32 servers x 10 lanes x 1,438 bytes), one
    rack's and ragged shapes, batched and alone, timed at the first two
    on the paper's value mix, every byte under its value, and random
-   lengths.  Every window of every path below launches ``reply_values``
-   once (its servers' replies, all points and racks of the window in one
-   launch); ``composed_vs_fused`` twice (both sides run the servers);
+   lengths; ``server_enqueue`` (``server_enqueue_vs_plain``) exactly at
+   the paper fleet's window (12 points x 1,344 lanes x 32 servers x 64
+   slots), one rack's and ragged lane counts, each with lanes to any
+   server, all to one (drops), rings that wrap, full queues and no lane to
+   a server, batched and alone, timed at the first two.  Every window of
+   every path below launches ``server_enqueue`` and ``reply_values`` once
+   each (its servers' enqueue and replies, all points and racks of the
+   window in one launch); ``composed_vs_fused`` twice (both sides run the
+   servers);
 4. main path at the paper's scale (``configs/orbitcache_paper.py``: 10M
    keys, C = 128, 32 servers, 4M rps offered): preload the 128 hottest
    keys, run 1,000 windows through ``RackSimulator.run``, each window a
@@ -1043,6 +1049,147 @@ def time_reply_values(dev):
 
 
 # --------------------------------------------------------------------------
+# server_enqueue kernel
+# --------------------------------------------------------------------------
+# (points, lanes, servers, queue depth): the paper fleet's window (12
+# points of 768 client, 320 reply and 256 fetch lanes), one paper rack, and
+# lane counts no multiple of 32 or of the block, past one pass of it, none
+SE_PAPER, SE_RACK = (12, 1344, 32, 64), (1, 1344, 32, 64)
+SE_RAGGED = ((2, 1, 4, 64), (2, 33, 4, 8), (3, 513, 8, 64),
+             (3, 2049, 16, 64), (2, 5000, 32, 64), (2, 700, 5, 3),
+             (2, 0, 4, 8))
+SE_KINDS = ("random", "one", "wrap", "full", "none")
+
+
+def se_lanes(shape, kind, seed, dev):
+    """The 20 flat inputs of one call, each ``[P, ...]``: ``random``, lanes
+    to any server, a third to none (server -1 on some), queues empty to
+    full, ``rear`` anywhere; ``one``, every lane to server 0 (drops);
+    ``wrap``, ``rear`` near the queue's end; ``full``, every queue full;
+    ``none``, no lane to any server."""
+    p, b, n, q = shape
+    rng = np.random.default_rng(seed)
+    lb, ln, lr = (p, b), (p, n), (p, n, q)
+    server = rng.integers(0, n, lb)
+    to = rng.random(lb) < 0.67
+    server[~to & (rng.random(lb) < 0.5)] = -1
+    qlen, rear = rng.integers(0, q + 1, ln), rng.integers(0, q, ln)
+    if kind == "one":
+        server[:], to[:] = 0, True
+        qlen[:] = rng.integers(0, q // 2 + 1, ln)
+    elif kind == "wrap":
+        rear[:] = q - 1 - rng.integers(0, min(3, q), ln)
+        qlen[:] = rng.integers(0, q // 4 + 1, ln)
+    elif kind == "full":
+        qlen[:] = q
+    elif kind == "none":
+        to[:] = False
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    i32 = lambda sh: t(rng.integers(-2**31, 2**31, sh).astype(  # noqa: E731
+        np.int32))
+    f32 = lambda sh: t(rng.standard_normal(sh).astype(np.float32))  # noqa
+    return ([t(server.astype(np.int32)), t(to)]
+            + [i32(lb) for _ in range(7)] + [f32(lb)]
+            + [i32(lr) for _ in range(7)] + [f32(lr)]
+            + [t(qlen.astype(np.int32)), t(rear.astype(np.int32))])
+
+
+def se_split(args):
+    return (args[0], args[1], args[2:10], args[10:18], args[18], args[19])
+
+
+def se_plain(*args):
+    """The plain version, or, with no lanes (where it cannot index its
+    empty lanes), what it means: rings and counts passed through."""
+    from repro_torch.kernels.server_enqueue.ref import server_enqueue_ref
+
+    if args[0].numel():
+        return server_enqueue_ref(*args)
+    zero = torch.zeros_like(args[18])
+    return (*args[10:18], args[18], args[19] % args[10].shape[1], zero,
+            zero, torch.zeros(0, dtype=torch.bool, device=args[0].device))
+
+
+def check_server_enqueue(dev):
+    """The kernel against the plain version on the card, exactly: every
+    kind at the paper fleet's and one rack's shapes and the ragged shapes,
+    batched (one launch) and one point alone, and with inputs the points
+    share.  Returns the cases checked."""
+    from repro_torch import kernels as kn
+    from repro_torch.kernels.server_enqueue import ops
+
+    base = kn._SERVER_ENQUEUE_BASE
+    n_cases = 0
+    for i, shape in enumerate((SE_PAPER, SE_RACK) + SE_RAGGED):
+        p = shape[0]
+        for j, kind in enumerate(SE_KINDS):
+            args = se_lanes(shape, kind, 100 * i + j, dev)
+            for shared in ((), (0, 1, 7, 19)):
+                a = [x[0] if m in shared else x for m, x in enumerate(args)]
+                want = [torch.stack(w) for w in zip(*(
+                    se_plain(*(x[k] if x.dim() > r else x
+                               for x, r in zip(a, base)))
+                    for k in range(p)))]
+                kn.reset_launch_counts()
+                rings, *rest = ops.server_enqueue(*se_split(a), p=p)
+                one_rings, *one_rest = ops.server_enqueue(*se_split(
+                    [x[-1] if x.dim() > r else x for x, r in zip(a, base)]))
+                torch.cuda.synchronize()
+                if kn.LAUNCHES["server_enqueue"] != 2:
+                    raise AssertionError(
+                        f"server_enqueue launched "
+                        f"{kn.LAUNCHES['server_enqueue']}")
+                for k, (g, o, w) in enumerate(zip(
+                        [*rings, *rest], [*one_rings, *one_rest], want)):
+                    if not (g.dtype == w.dtype and torch.equal(g, w)
+                            and torch.equal(o, w[-1])):
+                        raise AssertionError(
+                            f"server_enqueue != plain at {shape}, {kind}, "
+                            f"shared {shared}, output {k}")
+                n_cases += 1
+    return n_cases
+
+
+def time_server_enqueue(dev):
+    """Device µs per launch at the paper fleet's and one rack's shapes
+    (lanes of the ``random`` and ``one`` kinds), beside the bound (the
+    rings read and written, every lane's server, flag and fields read and
+    its ``accepted`` written, the counts, once, at 3.35 TB/s), the launch
+    floor, the host's issue cost, the wrapper's and the plain version's
+    ms."""
+    from repro_torch.kernels.server_enqueue import kernel, ops
+    from repro_torch.kernels.server_enqueue.ref import server_enqueue_ref
+
+    rows = []
+    for shape in (SE_PAPER, SE_RACK):
+        p, b, n, q = shape
+        for j, kind in enumerate(("random", "one")):
+            args = se_lanes(shape, kind, 7 + j, dev)
+            outs = ops.server_enqueue(*se_split(args), p=p)
+            outs = [*outs[0], *outs[1:]]
+            ins = [a.data_ptr() for a in args]
+            strides = [a[0].numel() for a in args]
+            optrs = [o.data_ptr() for o in outs]
+
+            def launch(stream, empty=False):
+                kernel.launch(ins, strides, optrs, p, b, n, q, stream,
+                              empty=empty)
+
+            def plain():          # as the fleet ran it: vmapped
+                return torch.func.vmap(server_enqueue_ref)(*args)
+
+            t = kernel_times(launch, lambda st: launch(st, True),
+                             lambda: ops.server_enqueue(*se_split(args),
+                                                        p=p), plain)
+            nbytes = p * (2 * 8 * n * q * 4 + b * (4 + 1 + 8 * 4 + 1)
+                          + n * 4 * 6)
+            rows.append(dict(shape=dict(zip(("p", "lanes", "n", "q"),
+                                            shape)), kind=kind, **t,
+                             **bound(nbytes, 0)))
+    return rows
+
+
+# --------------------------------------------------------------------------
 # orbit_match kernel
 # --------------------------------------------------------------------------
 # lanes and entries of the fuzz cases; None is one subround's ingress of
@@ -1247,6 +1394,7 @@ def counting_plain_versions():
     from repro_torch.kernels.hot_gather import ref as hg_ref
     from repro_torch.kernels.orbit_match import ref as om_ref
     from repro_torch.kernels.reply_values import ref as rv_ref
+    from repro_torch.kernels.server_enqueue import ref as se_ref
     from repro_torch.kernels.subround import ref as sr_ref
 
     targets = {"subround": (sr_ref, "subround_ref"),
@@ -1254,7 +1402,8 @@ def counting_plain_versions():
                "cms_one_hot": (cms_ref, "cms_update_query_ref"),
                "hot_gather": (hg_ref, "hot_gather_ref"),
                "orbit_match": (om_ref, "orbit_match_ref"),
-               "reply_values": (rv_ref, "reply_values_ref")}
+               "reply_values": (rv_ref, "reply_values_ref"),
+               "server_enqueue": (se_ref, "server_enqueue_ref")}
     calls = {k: 0 for k in targets}
     real = {k: getattr(m, f) for k, (m, f) in targets.items()}
 
@@ -1306,10 +1455,10 @@ def run_main_path(dev):
         if n_win != WINDOWS or launches != RACK.subrounds * WINDOWS:
             raise AssertionError(f"{launches} subround launches in {n_win} "
                                  f"windows; want {RACK.subrounds} per window")
-        if kn.LAUNCHES["reply_values"] != WINDOWS:
-            raise AssertionError(f"{kn.LAUNCHES['reply_values']} reply_values"
-                                 f" launches in {n_win} windows; want 1 per "
-                                 f"window")
+        for k in ("reply_values", "server_enqueue"):
+            if kn.LAUNCHES[k] != WINDOWS:
+                raise AssertionError(f"{kn.LAUNCHES[k]} {k} launches in "
+                                     f"{n_win} windows; want 1 per window")
         if any(plain_calls.values()):
             raise AssertionError(f"plain versions ran on the kernel path: "
                                  f"{plain_calls}")
@@ -1429,7 +1578,8 @@ def run_control_plane(dev):
     n_win = CP_PHASES * int(round(CP_PHASE_S / (rack.window_us * 1e-6)))
     n_periods = n_win // period_w
     want = {"subround": rack.subrounds * n_win, "cms": n_win,
-            "hot_gather": 3 * n_periods, "reply_values": n_win}
+            "hot_gather": 3 * n_periods, "reply_values": n_win,
+            "server_enqueue": n_win}
     with counting_plain_versions() as plain_calls:
         kn.reset_launch_counts()
         torch.cuda.synchronize()
@@ -1509,7 +1659,8 @@ def run_control_plane(dev):
                         in e.key) for k in want}
     us_by_kernel = {k: device_us(dev_events, f"{k}_kernel") for k in want}
     if by_kernel != {"subround": rack.subrounds * pw, "cms": pw,
-                     "hot_gather": 3, "reply_values": pw}:
+                     "hot_gather": 3, "reply_values": pw,
+                     "server_enqueue": pw}:
         raise AssertionError(f"profiler saw {by_kernel} in one period")
     busy_eager = busy_per_window(None, pw, dev_events, prof_wall)
     phase("control_plane_profile", windows=pw,
@@ -1583,7 +1734,8 @@ def run_hot_gather_live(sim, period_w):
 
 def run_schemes(dev):
     """NoCache and NetCache on the paper's rack (module docstring, phase
-    7): returns the reply_values launches of their timed runs."""
+    7): returns the reply_values (= server_enqueue) launches of their
+    timed runs."""
     from repro_torch import kernels as kn
     from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
     from repro_torch.interop import to_numpy
@@ -1610,8 +1762,10 @@ def run_schemes(dev):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
-        # the servers' reply values are the only kernel of these schemes
-        if (launches != dict.fromkeys(launches, 0) | {"reply_values": n_win}
+        # the servers' enqueue and reply values are the only kernels of
+        # these schemes
+        if (launches != dict.fromkeys(launches, 0) | {
+                "reply_values": n_win, "server_enqueue": n_win}
                 or any(calls.values())):
             raise AssertionError(f"{scheme} launched {launches} and ran "
                                  f"plain versions {calls}")
@@ -2026,7 +2180,8 @@ def run_fleet_staircase(dev):
     n_win = len(res[0].traces["tx"])
     if launches != dict(subround=RACK.subrounds * n_win, cms=0,
                         hot_gather=0, orbit_match=0,
-                        reply_values=n_win) or any(calls.values()):
+                        reply_values=n_win, server_enqueue=n_win) \
+            or any(calls.values()):
         raise AssertionError(f"fleet staircase launched {launches} and ran "
                              f"plain versions {calls} in {n_win} windows; "
                              f"want {RACK.subrounds} subround a window")
@@ -2162,7 +2317,8 @@ def run_fleet_control_plane(dev):
     n_win = CP_PHASES * int(round(CP_PHASE_S / (rack.window_us * 1e-6)))
     n_periods = n_win // period_w
     want = dict(subround=rack.subrounds * n_win, cms=n_win,
-                hot_gather=3 * n_periods, orbit_match=0, reply_values=n_win)
+                hot_gather=3 * n_periods, orbit_match=0, reply_values=n_win,
+                server_enqueue=n_win)
     with counting_plain_versions() as plain_calls:
         kn.reset_launch_counts()
         cap0 = fleet.chunk.capture_seconds
@@ -2272,7 +2428,7 @@ def run_fleet_control_plane(dev):
 
 def run_fleet_skew(dev, held=None):
     """``fleet_skew`` (module docstring): returns the ``subround`` and
-    ``reply_values`` launches of its runs.  ``held`` (a dict) gets the points whose
+    ``reply_values`` and ``server_enqueue`` launches of its runs.  ``held`` (a dict) gets the points whose
     invariants held."""
     from repro_torch import kernels as kn
     from repro_torch.configs.orbitcache_paper import RACK, WORKLOAD
@@ -2284,7 +2440,7 @@ def run_fleet_skew(dev, held=None):
     p = len(SKEW_ALPHAS)
     wls = [Workload(dataclasses.replace(WORKLOAD, zipf_alpha=a), device=dev)
            for a in SKEW_ALPHAS]
-    sub_launches = dict(subround=0, reply_values=0)
+    sub_launches = dict(subround=0, reply_values=0, server_enqueue=0)
     for scheme in ("orbitcache", "netcache", "nocache"):
         rack = dataclasses.replace(RACK, scheme=scheme)
         k = rack.cache_entries if scheme == "orbitcache" else \
@@ -2307,7 +2463,8 @@ def run_fleet_skew(dev, held=None):
         del before
         n_win = len(res[0].traces["tx"])
         want = dict(subround=rack.subrounds * n_win * (scheme == "orbitcache"),
-                    cms=0, hot_gather=0, orbit_match=0, reply_values=n_win)
+                    cms=0, hot_gather=0, orbit_match=0, reply_values=n_win,
+                    server_enqueue=n_win)
         if launches != want or any(calls.values()):
             raise AssertionError(f"skew {scheme} launched {launches} and ran "
                                  f"plain versions {calls}; want {want}")
@@ -2380,10 +2537,9 @@ def run_fleet(dev, held=None):
                    hot_gather=dict(fleet_staircase=0,
                                    fleet_control_plane=cp["hot_gather"],
                                    fleet_skew=0),
-                   reply_values=dict(
-                       fleet_staircase=stair["reply_values"],
-                       fleet_control_plane=cp["reply_values"],
-                       fleet_skew=skew["reply_values"]))
+                   **{k: dict(fleet_staircase=stair[k],
+                              fleet_control_plane=cp[k], fleet_skew=skew[k])
+                      for k in ("reply_values", "server_enqueue")})
     batched = dict(
         subround=(err_sr, {r["p"]: r["device_us"] for r in t_sr["batched"]}),
         cms=(err_cms, {r["p"]: r["device_us"] for r in t_cms["batched"]}),
@@ -2707,7 +2863,8 @@ def run_fabric_paper(dev, held=None):
     n_win = len(sp["remote"])
     n_periods = n_win // period_w
     want = dict(subround=2 * rack.subrounds * n_win, cms=n_win,
-                hot_gather=6 * n_periods, orbit_match=0, reply_values=n_win)
+                hot_gather=6 * n_periods, orbit_match=0, reply_values=n_win,
+                server_enqueue=n_win)
     if launches != want or any(calls.values()):
         raise AssertionError(f"fabric_paper launched {launches} and ran "
                              f"plain versions {calls}; want {want}")
@@ -2897,7 +3054,8 @@ def run_fabric_locality(dev):
             capture_s = bf.chunk.capture_seconds - cap0
             launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
         want = dict(subround=2 * cfg.subrounds * n * (scheme == "orbitcache"),
-                    cms=0, hot_gather=0, orbit_match=0, reply_values=n)
+                    cms=0, hot_gather=0, orbit_match=0, reply_values=n,
+                    server_enqueue=n)
         if launches != want or any(calls.values()):
             raise AssertionError(f"fabric_locality {scheme} launched "
                                  f"{launches}, plain {calls}; want {want}")
@@ -2975,7 +3133,7 @@ def run_fabric_locality(dev):
         one_period()
         launches, calls = dict(kn.LAUNCHES), dict(plain_calls)
     want = dict(subround=2 * cfg.subrounds * pw, cms=pw, hot_gather=6,
-                orbit_match=0, reply_values=pw)
+                orbit_match=0, reply_values=pw, server_enqueue=pw)
     if launches != want or any(calls.values()):
         raise AssertionError(f"fabric_locality period launched {launches}, "
                              f"plain {calls}; want {want}")
@@ -3065,10 +3223,10 @@ def run_composed_vs_fused(dev):
             got, calls = dict(kn.LAUNCHES), dict(plain_calls)
         want = dict.fromkeys(got, 0)
         want["subround"] = want_subround
-        want["reply_values"] = want_reply
+        want["reply_values"] = want["server_enqueue"] = want_reply
         if got != want or any(calls.values()):
             raise AssertionError(f"{label}: launches {got}, plain {calls}")
-        for k in ("subround", "reply_values"):
+        for k in ("subround", "reply_values", "server_enqueue"):
             launches[k] += got[k]
         return out, wall
 
@@ -3083,7 +3241,8 @@ def run_composed_vs_fused(dev):
         sim.carry = sim.carry._replace(write_ratio=torch.tensor(
             0.1, dtype=torch.float32, device=dev))
         n_sub = rack.subrounds * COMPOSED_WINDOWS * (scheme == "orbitcache")
-        # both sides of a window run server_step: 2 reply_values a window
+        # both sides of a window run server_step: 2 reply_values and 2
+        # server_enqueue a window
         (leaves, carry), wall = drive(
             scheme, lambda: tc.fused_and_composed(sim, COMPOSED_WINDOWS,
                                                   same_on_card), n_sub,
@@ -3467,7 +3626,7 @@ def analysis_paper_rack(dev, wl):
     per_window = summ.launches
     seen = {k: summ.kernels[s] for k, s in KERNEL_SYMBOLS.items()}
     want = dict(subround=RACK.subrounds, cms=0, hot_gather=0, orbit_match=0,
-                reply_values=1)
+                reply_values=1, server_enqueue=1)
     if per_window != want or seen != per_window or summ.htod or summ.dtoh:
         raise AssertionError(f"replayed paper window: LAUNCHES "
                              f"{per_window}, profiler {seen}, HtoD "
@@ -4492,6 +4651,7 @@ def main():
     from repro_torch.kernels.hot_gather import kernel as hg_kernel
     from repro_torch.kernels.orbit_match import kernel as om_kernel
     from repro_torch.kernels.reply_values import kernel as rv_kernel
+    from repro_torch.kernels.server_enqueue import kernel as se_kernel
     from repro_torch.kernels.subround import kernel as sr_kernel
 
     dev = torch.device("cuda", 0)
@@ -4505,7 +4665,7 @@ def main():
         return
 
     libs = [sr_kernel.LIB, cms_kernel.LIB, hg_kernel.LIB, om_kernel.LIB,
-            rv_kernel.LIB]
+            rv_kernel.LIB, se_kernel.LIB]
     t0 = time.perf_counter()
     built = _build.build_all(libs, verbose=True)
     for kl in libs:
@@ -4537,11 +4697,15 @@ def main():
     rv_times = time_reply_values(dev)
     phase("reply_values_vs_plain", cases=rv_cases, equal=True,
           calls=rv_times)
+    se_cases = check_server_enqueue(dev)
+    se_times = time_server_enqueue(dev)
+    phase("server_enqueue_vs_plain", cases=se_cases, equal=True,
+          calls=se_times)
 
     main_launches, live, wl = run_main_path(dev)
     om = run_orbit_match(dev, live)
     cp_launches = run_control_plane(dev)
-    scheme_rv = run_schemes(dev)
+    scheme_sv = run_schemes(dev)
     held = {}
     batched, fleet_launches = run_fleet(dev, held)
     n_fab, fab_err, fab_times = check_fabric_kernels(dev)
@@ -4571,13 +4735,14 @@ def main():
 
     hg = hg_calls[1]          # ids [2048] against hot [2048], the largest
     rv = rv_times[0]          # the paper fleet's window, the paper's mix
-    rv_by_path = dict(main_path=WINDOWS,
-                      control_plane=cp_launches["reply_values"],
-                      schemes=scheme_rv, **fleet_launches["reply_values"],
-                      **{c: v["reply_values"]
-                         for c, v in fabric_launches.items()},
-                      switch_regression=reg_launches["reply_values"],
-                      analysis=analysis_launches["reply_values"])
+    se = se_times[0]          # the paper fleet's window, random lanes
+
+    def server_by_path(k):    # reply_values, server_enqueue: one a step
+        return dict(main_path=WINDOWS, control_plane=cp_launches[k],
+                    schemes=scheme_sv, **fleet_launches[k],
+                    **{c: v[k] for c, v in fabric_launches.items()},
+                    switch_regression=reg_launches[k],
+                    analysis=analysis_launches[k])
 
     def device_times(t):
         return {k: t[k] for k in ("device_us", "device_floor_us",
@@ -4624,10 +4789,21 @@ def main():
              bound_by=om["bound_by"], library_ms=None),
         dict(name="reply_values", route="cuda",
              source="src/repro_torch/kernels/reply_values/kernel.cu",
-             replaces=None, launches=sum(rv_by_path.values()),
-             launches_by_path=rv_by_path, max_abs_err=0.0, ms=rv["ms"],
+             replaces=None,
+             launches=sum(server_by_path("reply_values").values()),
+             launches_by_path=server_by_path("reply_values"),
+             max_abs_err=0.0, ms=rv["ms"],
              **device_times(rv), plain_ms=rv["plain_ms"],
              bound_ms=rv["bound_ms"], bound_by=rv["bound_by"],
+             library_ms=None),
+        dict(name="server_enqueue", route="cuda",
+             source="src/repro_torch/kernels/server_enqueue/kernel.cu",
+             replaces=None,
+             launches=sum(server_by_path("server_enqueue").values()),
+             launches_by_path=server_by_path("server_enqueue"),
+             max_abs_err=0.0, ms=se["ms"],
+             **device_times(se), plain_ms=se["plain_ms"],
+             bound_ms=se["bound_ms"], bound_by=se["bound_by"],
              library_ms=None),
     ]
     print(json.dumps({"kernels": record}))

@@ -18,16 +18,20 @@ run of its harness, derived from the code (R = 2 subrounds):
 * ``compiled_controller_chunk`` (a chunk of 1 period of 2 windows,
   tracking on): 2 windows x R = 4 ``subround``, 1 ``cms`` a window = 2,
   3 ``hot_gather`` a period (``controller._merge_scores``), 1
-  ``reply_values`` a window (``server_step``) = 2;
-* ``fleet.window_step`` (P = 2, a chunk of 1 window): R = 2 ``subround``
-  and 1 ``reply_values`` whatever P (one batched call a call site);
+  ``server_enqueue`` and 1 ``reply_values`` a window (``server_step``) =
+  2 each;
+* ``fleet.window_step`` (P = 2, a chunk of 1 window): R = 2 ``subround``,
+  1 ``server_enqueue`` and 1 ``reply_values`` whatever P (one batched
+  call a call site);
 * ``fabric_window_step`` (a chunk of 1 window, no tracking): R rack + R
-  spine = 4 ``subround``, 0 ``cms``, 1 ``reply_values`` for all racks;
+  spine = 4 ``subround``, 0 ``cms``, 1 ``server_enqueue`` and 1
+  ``reply_values`` for all racks;
 * ``fabric_controller_chunk`` (1 period of 2 windows, tracking): 2 x (R +
   R) = 8 ``subround``, 2 ``cms``, 3 rack + 3 spine = 6 ``hot_gather``, 2
-  ``reply_values``.
+  ``server_enqueue``, 2 ``reply_values``.
 
-The two switch entries reach no ``server_step``: 0 ``reply_values``.
+The two switch entries reach no ``server_step``: 0 ``server_enqueue`` and
+0 ``reply_values``.
 
 On the ``cuda`` backend every call launches once (``kernels.LAUNCHES``
 equals ``CALLS``); on ``ref`` nothing launches.
@@ -223,7 +227,7 @@ def _controller_chunk(device) -> EntryPoint:
 
     return EntryPoint("compiled_controller_chunk", build,
                       dict(subround=2 * R, cms=2, hot_gather=3,
-                           reply_values=2), device,
+                           server_enqueue=2, reply_values=2), device,
                       axis="active_size", sweep_values=(5, 8),
                       body_fn=sim_mod.window_step)
 
@@ -242,7 +246,8 @@ def _fleet_window_step(device) -> EntryPoint:
                               lambda rps: f.set_offered(rps))
 
     return EntryPoint("fleet.window_step", build,
-                      dict(subround=R, reply_values=1), device,
+                      dict(subround=R, server_enqueue=1, reply_values=1),
+                      device,
                       axis="offered_rps", sweep_values=(4e4, 9e4),
                       body_fn=fl.fleet_window_step)
 
@@ -266,7 +271,8 @@ def _fabric_window_step(device) -> EntryPoint:
                               lambda f: sim.set_local_frac(f))
 
     return EntryPoint("fabric_window_step", build,
-                      dict(subround=2 * R, cms=0, reply_values=1), device,
+                      dict(subround=2 * R, cms=0, server_enqueue=1,
+                           reply_values=1), device,
                       axis="local_frac", sweep_values=(0.5, 0.9),
                       body_fn=fs.fabric_window_step)
 
@@ -290,7 +296,7 @@ def _fabric_controller_chunk(device) -> EntryPoint:
 
     return EntryPoint("fabric_controller_chunk", build,
                       dict(subround=2 * 2 * R, cms=2, hot_gather=6,
-                           reply_values=2), device,
+                           server_enqueue=2, reply_values=2), device,
                       axis="local_frac", sweep_values=(0.5, 0.9),
                       body_fn=fs.fabric_window_step)
 

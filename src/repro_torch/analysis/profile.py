@@ -25,7 +25,8 @@ import torch
 KERNEL_SYMBOLS = {"subround": "subround_kernel", "cms": "cms_kernel",
                   "hot_gather": "hot_gather_kernel",
                   "orbit_match": "orbit_match_kernel",
-                  "reply_values": "reply_values_kernel"}
+                  "reply_values": "reply_values_kernel",
+                  "server_enqueue": "server_enqueue_kernel"}
 
 
 @dataclass

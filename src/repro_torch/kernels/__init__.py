@@ -17,7 +17,7 @@ with CPU tensors is an error.
 ``LAUNCHES`` counts kernel launches by kernel name: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels.  ``CALLS`` counts the calls of the
-five dispatchers below, on either backend (a batched call once, as it
+six dispatchers below, on either backend (a batched call once, as it
 launches once): on ``cuda`` each call launches once, so the two agree,
 and on ``ref`` ``LAUNCHES`` stays 0 while ``CALLS`` still counts the
 kernel calls a path makes, the number the card's launches must equal.
@@ -63,6 +63,7 @@ from . import cms as _cms_pkg  # noqa: F401, E402
 from . import hot_gather as _hot_gather_pkg  # noqa: F401, E402
 from . import orbit_match as _orbit_match_pkg  # noqa: F401, E402
 from . import reply_values as _reply_values_pkg  # noqa: F401, E402
+from . import server_enqueue as _server_enqueue_pkg  # noqa: F401, E402
 from . import subround as _subround_pkg  # noqa: F401, E402
 from .subround import ops as _subround_ops  # noqa: E402
 
@@ -70,7 +71,8 @@ KERNEL_BACKENDS = ("cuda", "ref")
 _forced: str | None = None
 
 LAUNCHES: dict[str, int] = {"subround": 0, "cms": 0, "hot_gather": 0,
-                            "orbit_match": 0, "reply_values": 0}
+                            "orbit_match": 0, "reply_values": 0,
+                            "server_enqueue": 0}
 CALLS: dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 
@@ -183,6 +185,22 @@ def reply_values(kidx, version, vlen, carries_val, max_frags: int,
                  [kidx, version, vlen, carries_val], [max_frags, pad])[0]
 
 
+def server_enqueue(server, to_server, fields, rings, qlen, rear):
+    """The servers' FIFO enqueue of a step's lanes [B]: ``(rings', qlen',
+    rear', new_counts, dropped_now, accepted)``.
+
+    ``server`` int32 and ``to_server`` bool [B]; ``fields``, the eight
+    lane fields in ring order (int32 op, kidx, seq, client, port, flag,
+    vlen; float32 ts) [B]; ``rings``, the eight rings [n, q]; int32
+    ``qlen`` and ``rear`` [n].  Each ``to_server`` lane takes the next
+    slot of its server's ring, in lane order, while the ring has room;
+    ``ref`` says exactly what."""
+    CALLS["server_enqueue"] += 1
+    outs = _call(_server_enqueue_op, _server_enqueue,
+                 [server, to_server, *fields, *rings, qlen, rear], [])
+    return outs[:8], *outs[8:]
+
+
 # ---------------------------------------------------------------------------
 # points functions: p instances (None: one) on the backend the data picks
 # ---------------------------------------------------------------------------
@@ -243,6 +261,16 @@ def _reply_values(args, p, consts):
         return _plain(lambda *a: (ref.reply_values_ref(*a, f, pad),), p,
                       args, _REPLY_VALUES_BASE)
     return [ops.reply_values(*args, f, pad, p=p)]
+
+
+def _server_enqueue(args, p, consts):
+    from .server_enqueue import ops, ref
+
+    if kernel_backend(args[0].device) == "ref":
+        return _plain(ref.server_enqueue_ref, p, args, _SERVER_ENQUEUE_BASE)
+    rings, *rest = ops.server_enqueue(args[0], args[1], args[2:10],
+                                      args[10:18], args[18], args[19], p=p)
+    return [*rings, *rest]
 
 
 # ---------------------------------------------------------------------------
@@ -344,9 +372,12 @@ _SUBROUND_BASE = _subround_ops.BASE_RANKS
 _CMS_BASE = (2, None, None)               # hkey; the sketches' mask, counts
 _HOT_GATHER_BASE = (1, 1, 2)
 _REPLY_VALUES_BASE = (2,) * 4
+_SERVER_ENQUEUE_BASE = (1,) * 10 + (2,) * 8 + (1, 1)  # lanes; rings; counts
 
 _subround_op = _kernel_op("subround", _SUBROUND_BASE, _subround)
 _cms_op = _kernel_op("cms_update_query", _CMS_BASE, _cms)
 _hot_gather_op = _kernel_op("hot_gather", _HOT_GATHER_BASE, _hot_gather)
 _reply_values_op = _kernel_op("reply_values", _REPLY_VALUES_BASE,
                               _reply_values)
+_server_enqueue_op = _kernel_op("server_enqueue", _SERVER_ENQUEUE_BASE,
+                                _server_enqueue)

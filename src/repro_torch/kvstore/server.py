@@ -5,9 +5,9 @@ window; arrivals beyond the queue depth drop.  Served requests become
 replies (R-REQ -> R-REP, W-REQ -> W-REP, F-REQ -> F-REP, CRN-REQ -> R-REP),
 ``max_frags`` lanes each.  With ``track_popularity`` every server's
 count-min tracker counts its accepted reads, all servers in one count-min
-kernel launch per window.  The replies' value bytes are one
-``reply_values`` kernel launch per window, for all servers (and all
-points of a fleet).
+kernel launch per window.  The enqueue is one ``server_enqueue`` and the
+replies' value bytes one ``reply_values`` kernel launch per window, for
+all servers (and all points of a fleet).
 """
 from __future__ import annotations
 
@@ -17,7 +17,6 @@ import torch
 
 from repro_torch import kernels as kn
 from repro_torch.core.hashing import hash128_u32
-from repro_torch.core.scatter_free import unique_writer
 from repro_torch.core.sketch import (
     PopularityTracker, init_tracker, report_and_reset, track_fused,
 )
@@ -74,6 +73,9 @@ def init_servers(cfg: ServerConfig, num_keys: int, device=None) -> ServerState:
     )
 
 
+RING_FIELDS = ("op", "kidx", "seq", "client", "port", "flag", "vlen", "ts")
+
+
 class ServerStepOut(NamedTuple):
     replies: PacketBatch          # [n_srv * cap * F]
     served_now: torch.Tensor      # int32[n_srv]
@@ -98,34 +100,20 @@ def server_step(st: ServerState, cfg: ServerConfig, pkts: PacketBatch,
     dev = pkts.op.device
     ar = lambda m: torch.arange(m, dtype=I32, device=dev)
 
-    # ---- enqueue arrivals ---------------------------------------------------
-    srv = torch.where(to_server, pkts.server, 0).long()
-    onehot = (srv[:, None] == ar(n)[None, :]) & to_server[:, None]
-    oh = onehot.to(I32)
-    prior = torch.cumsum(oh, dim=0, dtype=I32) - oh
-    offset = torch.gather(prior, 1, srv[:, None])[:, 0]
-    free = (q - st.qlen)[srv]
-    accepted = to_server & (offset < free)
-    dropped_now = torch.sum((to_server & ~accepted)[:, None] & onehot, dim=0,
-                            dtype=I32)
-    slot = (st.rear[srv] + offset) % q
-    writer, written = unique_writer(srv * q + slot, accepted, n * q)
-    put = lambda arr, val: torch.where(written, val[writer],
-                                       arr.reshape(-1)).reshape(n, q)
-    new_counts = torch.sum(onehot & accepted[:, None], dim=0, dtype=I32)
-    st = st._replace(
-        op=put(st.op, pkts.op), kidx=put(st.kidx, pkts.kidx),
-        seq=put(st.seq, pkts.seq), client=put(st.client, pkts.client),
-        port=put(st.port, pkts.port), flag=put(st.flag, flag_in),
-        vlen=put(st.vlen, pkts.vlen), ts=put(st.ts, pkts.ts),
-        qlen=st.qlen + new_counts, rear=(st.rear + new_counts) % q,
-        dropped=sat_add(st.dropped, dropped_now),
-    )
+    # ---- enqueue arrivals: one kernel launch for all points ---------------
+    rings, qlen, rear, _, dropped_now, accepted = kn.server_enqueue(
+        pkts.server, to_server,
+        (pkts.op, pkts.kidx, pkts.seq, pkts.client, pkts.port, flag_in,
+         pkts.vlen, pkts.ts),
+        tuple(getattr(st, k) for k in RING_FIELDS), st.qlen, st.rear)
+    st = st._replace(**dict(zip(RING_FIELDS, rings)), qlen=qlen, rear=rear,
+                     dropped=sat_add(st.dropped, dropped_now))
 
     # ---- popularity tracking on accepted reads (CMS + candidates) ----------
     if cfg.track_popularity:
         is_read = accepted & (pkts.op == OP_R_REQ)
-        per_srv_mask = (onehot & is_read[:, None]).T     # [n, B]
+        per_srv_mask = (pkts.server[None, :] == ar(n)[:, None]) \
+            & is_read[None, :]                           # [n, B]
         st = st._replace(tracker=track_fused(st.tracker, pkts.kidx,
                                              per_srv_mask))
 

@@ -501,4 +501,5 @@ def test_fabric_graphed_equals_eager(spine):
     per_window = 2 if spine == "orbitcache" else 1
     assert lg == le == dict(subround=10 * per_window * cfg.subrounds,
                             cms=10, hot_gather=3 * per_window,
-                            orbit_match=0, reply_values=10)
+                            orbit_match=0, reply_values=10,
+                            server_enqueue=10)

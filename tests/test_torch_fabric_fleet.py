@@ -138,13 +138,15 @@ def test_batched_fabric_matches_jax():
 
 
 OPS = {"subround": "_subround_op", "cms": "_cms_op",
-       "hot_gather": "_hot_gather_op"}
+       "hot_gather": "_hot_gather_op",
+       "server_enqueue": "_server_enqueue_op"}
 
 
 @pytest.mark.parametrize("n_points", [1, 3])
 def test_one_op_call_per_call_site_nested(n_points, monkeypatch):
     """A batched fabric window calls the subround op once per subround
-    for all racks and once for all spines, the count-min op once; a
+    for all racks and once for all spines, the count-min and enqueue ops
+    once; a
     period boundary the hot_gather op three times for the racks and three
     for the spines.  Whatever P; each points op runs once for all P x R
     points."""
@@ -174,13 +176,13 @@ def test_one_op_call_per_call_site_nested(n_points, monkeypatch):
     bf.preload(warm_windows=0)
     s = cfg.subrounds
     assert count(lambda: bf.run_windows(2)) == dict(
-        subround=2 * 2 * s, cms=2, hot_gather=0)
-    # per window: S spine calls (P points), S rack calls, one count-min
-    # call and one reply_values call (P x R points)
+        subround=2 * 2 * s, cms=2, hot_gather=0, server_enqueue=2)
+    # per window: S spine calls (P points), S rack calls, one count-min,
+    # one server_enqueue and one reply_values call (P x R points)
     assert sorted(per_point) == sorted(
-        ([n_points] * s + [2 * n_points] * (s + 2)) * 2)
+        ([n_points] * s + [2 * n_points] * (s + 3)) * 2)
     assert count(lambda: bf.run_periods(1, 2)) == dict(
-        subround=2 * 2 * s, cms=2, hot_gather=6)
+        subround=2 * 2 * s, cms=2, hot_gather=6, server_enqueue=2)
 
 
 def nested(fn, q, p, args, dims):
@@ -382,4 +384,5 @@ def test_nested_batched_launches_equal_plain():
             np.testing.assert_array_equal(a[k], b_[k], err_msg=k)
     assert_trees_equal(cg, ce, "graphed vs eager")
     assert lg == le == dict(subround=6 * 2 * cfg.subrounds, cms=6,
-                            hot_gather=6, orbit_match=0, reply_values=6)
+                            hot_gather=6, orbit_match=0, reply_values=6,
+                            server_enqueue=6)

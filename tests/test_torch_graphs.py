@@ -328,7 +328,7 @@ def test_graphed_chunk_matches_eager_on_card(scheme, draws_kind):
     subround = 4 * n_win if scheme in ("orbitcache", "control_plane") else 0
     assert launches == dict(subround=subround, cms=n_win * tracking,
                             hot_gather=3 * 4 * tracking, orbit_match=0,
-                            reply_values=n_win)
+                            reply_values=n_win, server_enqueue=n_win)
     for i, (g, w) in enumerate(zip(got, want)):
         for k in w:
             np.testing.assert_array_equal(g[k], w[k], err_msg=f"{i}: {k}")
@@ -452,7 +452,7 @@ def test_fleet_graphed_chunk_matches_eager_on_card(scheme):
     subround = 4 * n_win if scheme in ("orbitcache", "control_plane") else 0
     assert launches == dict(subround=subround, cms=n_win * tracking,
                             hot_gather=3 * 4 * tracking, orbit_match=0,
-                            reply_values=n_win)
+                            reply_values=n_win, server_enqueue=n_win)
     for i, (g, w) in enumerate(zip(got, want)):
         for k in w:
             np.testing.assert_array_equal(g[k], w[k], err_msg=f"{i}: {k}")

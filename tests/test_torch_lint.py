@@ -81,7 +81,7 @@ def test_kernel_calls_counted_on_ref(cpu_entries):
     kn.reset_launch_counts()
     h.run()
     assert kn.CALLS == dict(subround=8, cms=2, hot_gather=6, orbit_match=0,
-                            reply_values=2)
+                            reply_values=2, server_enqueue=2)
     assert not any(kn.LAUNCHES.values())
 
 
